@@ -1,0 +1,258 @@
+"""Decoder-only transformer stack, dense branch (port of
+``repro.models.transformer``).
+
+Layers are stacked on a leading L dim, as in the reference; a Python loop
+over the L slices takes the place of ``jax.lax.scan``. Modes:
+  - prefill: full sequence, returns the KV cache (full or ring)
+  - decode:  one token against the cache (serve_step)
+
+Attention runs through an ``AttentionOps``: ``KERNEL_OPS`` (the default)
+sends prefill to the flash-attention kernel (K1) and decode to the decode
+kernels (K2, or K3 under ``kv_quant``), whose wrappers run their plain
+versions on a CPU tensor; ``PLAIN_OPS`` runs the plain versions on any
+device, as the yardstick the kernels are held against.
+
+Unlike the reference's functional updates, prefill fills a fresh cache in
+place and ``decode_step`` writes the new entry into the cache it is given
+and returns that same cache: the serve loop never reuses an old cache,
+and in-place writes save a copy of the whole cache per step.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.models import attention as attn
+from repro_torch.models.common import ParamDef, rms_norm, rope
+
+
+@dataclass(frozen=True)
+class AttentionOps:
+    prefill: Callable      # (q, k, v, *, causal, window) -> out
+    decode: Callable       # (q, ck, cv, pos, *, window, ring) -> out
+    decode_quant: Callable  # (q, ck, cks, cv, cvs, pos, *, window, ring)
+
+
+KERNEL_OPS = AttentionOps(flash_ops.flash_attention,
+                          decode_ops.decode_attention,
+                          decode_ops.decode_attention_quant)
+PLAIN_OPS = AttentionOps(flash_ops.flash_attention_plain,
+                         decode_ops.decode_attention_plain,
+                         decode_ops.decode_attention_quant_plain)
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.is_moe:
+        raise NotImplementedError(
+            "MoE blocks are not ported to repro_torch yet: ROADMAP.md "
+            "item 8")
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            "hybrid (attention + SSM) blocks are not ported to repro_torch "
+            "yet: ROADMAP.md item 7")
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported to repro_torch yet: "
+            f"see ROADMAP.md section 1")
+
+
+def decoder_param_table(cfg: ModelConfig) -> Dict:
+    _dense_only(cfg)
+    d, dh = cfg.d_model, cfg.head_dim
+    H, KV, L = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
+    layers: Dict[str, ParamDef] = {
+        "ln1": ParamDef((L, d), (None, None), init="ones"),
+        "wq": ParamDef((L, d, H * dh), (None, None, "model")),
+        "wk": ParamDef((L, d, KV * dh), (None, None, "model")),
+        "wv": ParamDef((L, d, KV * dh), (None, None, "model")),
+        "wo": ParamDef((L, H * dh, d), (None, "model", None)),
+        "ln2": ParamDef((L, d), (None, None), init="ones"),
+    }
+    if cfg.qkv_bias:
+        layers["bq"] = ParamDef((L, H * dh), (None, "model"), init="zeros")
+        layers["bk"] = ParamDef((L, KV * dh), (None, "model"), init="zeros")
+        layers["bv"] = ParamDef((L, KV * dh), (None, "model"), init="zeros")
+    if cfg.qk_norm:
+        layers["q_norm"] = ParamDef((L, dh), (None, None), init="ones")
+        layers["k_norm"] = ParamDef((L, dh), (None, None), init="ones")
+    layers["w1"] = ParamDef((L, d, cfg.d_ff), (None, None, "model"))
+    layers["w3"] = ParamDef((L, d, cfg.d_ff), (None, None, "model"))
+    layers["w2"] = ParamDef((L, cfg.d_ff, d), (None, "model", None))
+    table = {
+        "emb": ParamDef((cfg.vocab_size, d), ("model", None)),
+        "layers": layers,
+        "final_norm": ParamDef((d,), (None,), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        table["lm_head"] = ParamDef((d, cfg.vocab_size), (None, "model"))
+    return table
+
+
+# --- single block -------------------------------------------------------------
+
+
+def _qkv(cfg: ModelConfig, p, xn, positions):
+    B, S, _ = xn.shape
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = xn @ p["wq"]
+    k = xn @ p["wk"]
+    v = xn @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, dh)
+    k = k.reshape(B, S, KV, dh)
+    v = v.reshape(B, S, KV, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    q = rope(q, positions, cfg.rope_theta, partial=cfg.rope_2d)
+    k = rope(k, positions, cfg.rope_theta, partial=cfg.rope_2d)
+    return q, k, v
+
+
+def _mlp(cfg: ModelConfig, p, x):
+    h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+    return h @ p["w2"]
+
+
+def _attn_branch(cfg: ModelConfig, p, xn, layer_cache, pos, mode,
+                 ring: bool, ops: AttentionOps):
+    B, S, _ = xn.shape
+    window = cfg.sliding_window
+    if mode == "prefill":
+        positions = torch.arange(S, device=xn.device)
+        q, k, v = _qkv(cfg, p, xn, positions)
+        out = ops.prefill(q, k, v, causal=True, window=window)
+        ck, cv = layer_cache["k"], layer_cache["v"]
+        if cfg.kv_quant:
+            k, sk = attn.quantize_kv(k)
+            v, sv = attn.quantize_kv(v)
+        if ring:
+            W = ck.shape[1]
+            tail = min(S, W)
+            attn.cache_write_ring(ck, cv, k[:, S - tail:], v[:, S - tail:],
+                                  S - tail)
+            if cfg.kv_quant:
+                attn.cache_write_ring(
+                    layer_cache["k_scale"], layer_cache["v_scale"],
+                    sk[:, S - tail:], sv[:, S - tail:], S - tail)
+        else:
+            attn.cache_write_full(ck, cv, k, v, 0)
+            if cfg.kv_quant:
+                attn.cache_write_full(layer_cache["k_scale"],
+                                      layer_cache["v_scale"], sk, sv, 0)
+    else:  # decode
+        positions = torch.full((1,), pos, dtype=torch.int64,
+                               device=xn.device)
+        q, k, v = _qkv(cfg, p, xn, positions)
+        ck, cv = layer_cache["k"], layer_cache["v"]
+        if cfg.kv_quant:
+            k, sk = attn.quantize_kv(k)
+            v, sv = attn.quantize_kv(v)
+        # The reference writes with dynamic_update_slice, which clamps the
+        # start index into the cache: a full cache sized to the prompt
+        # (JaxEndpoint's CachePlan("full", serve_seq)) takes every decode
+        # step past its end in its LAST slot. Mirrored here on purpose.
+        idx = (pos % ck.shape[1]) if ring else min(pos, ck.shape[1] - 1)
+        ck[:, idx] = k[:, 0].to(ck.dtype)
+        cv[:, idx] = v[:, 0].to(cv.dtype)
+        if cfg.kv_quant:
+            cks, cvs = layer_cache["k_scale"], layer_cache["v_scale"]
+            cks[:, idx] = sk[:, 0]
+            cvs[:, idx] = sv[:, 0]
+            # the reference dequantizes the whole cache to compute_dtype,
+            # then attends; K3 dequantizes in f32 with q upcast to f32 —
+            # equal in f32 up to summation order, rounding-level apart in
+            # bf16
+            out = ops.decode_quant(q, ck, cks, cv, cvs, pos, window=window,
+                                   ring=ring)
+        else:
+            out = ops.decode(q, ck, cv, pos, window=window, ring=ring)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    return out @ p["wo"]
+
+
+def block_apply(cfg: ModelConfig, p, x, layer_cache, pos, mode,
+                ring: bool, ops: AttentionOps = KERNEL_OPS):
+    """One decoder block; writes its kv entries into ``layer_cache``."""
+    xn = rms_norm(x, p["ln1"])
+    x = x + _attn_branch(cfg, p, xn, layer_cache, pos, mode, ring, ops)
+    xn2 = rms_norm(x, p["ln2"])
+    return x + _mlp(cfg, p, xn2)
+
+
+# --- cache --------------------------------------------------------------------
+
+def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int,
+                 ring: bool) -> Dict:
+    """Shapes/dtypes of the serve cache (leading dim L on every leaf)."""
+    _dense_only(cfg)
+    L, KV, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    dt = torch.int8 if cfg.kv_quant else cfg.compute_dtype
+    shapes = {
+        "k": ((L, batch, cache_len, KV, dh), dt),
+        "v": ((L, batch, cache_len, KV, dh), dt),
+    }
+    if cfg.kv_quant:
+        shapes["k_scale"] = ((L, batch, cache_len, KV), torch.float32)
+        shapes["v_scale"] = ((L, batch, cache_len, KV), torch.float32)
+    return shapes
+
+
+def zero_cache(cfg: ModelConfig, batch: int, cache_len: int, ring: bool,
+               device) -> Dict:
+    shapes = cache_shapes(cfg, batch, cache_len, ring)
+    return {k: torch.zeros(s, dtype=d, device=device)
+            for k, (s, d) in shapes.items()}
+
+
+# --- full stack ----------------------------------------------------------------
+
+def _layer(tree: Dict, i: int) -> Dict:
+    return {k: t[i] for k, t in tree.items()}
+
+
+def _embed(cfg: ModelConfig, params, tokens):
+    x = params["emb"][tokens.long()]
+    return x.to(cfg.compute_dtype)
+
+
+def _unembed(cfg: ModelConfig, params, x):
+    x = rms_norm(x, params["final_norm"])
+    head = params["emb"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head.to(x.dtype)
+
+
+def prefill(cfg: ModelConfig, params, tokens,
+            cache_len: Optional[int] = None, ring: bool = False,
+            ops: AttentionOps = KERNEL_OPS):
+    """Run the prompt, return (last-position logits, serve cache)."""
+    _dense_only(cfg)
+    x = _embed(cfg, params, tokens)
+    B, S, _ = x.shape
+    cache_len = cache_len or S
+    cache = zero_cache(cfg, B, cache_len, ring, x.device)
+    for i in range(cfg.n_layers):
+        x = block_apply(cfg, _layer(params["layers"], i), x,
+                        _layer(cache, i), 0, "prefill", ring, ops)
+    logits = _unembed(cfg, params, x[:, -1:])
+    return logits[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int,
+                ring: bool = False, ops: AttentionOps = KERNEL_OPS):
+    """One serve step: tokens (B,1) at absolute position ``pos``. Writes
+    the new kv entries into ``cache`` and returns (logits, cache)."""
+    _dense_only(cfg)
+    x = _embed(cfg, params, tokens)
+    for i in range(cfg.n_layers):
+        x = block_apply(cfg, _layer(params["layers"], i), x,
+                        _layer(cache, i), pos, "decode", ring, ops)
+    logits = _unembed(cfg, params, x)
+    return logits[:, 0], cache
