@@ -9,18 +9,23 @@ exits non-zero:
   2. build   — compile the CUDA kernels from ``src/repro_torch/csrc``.
   3. kernels — K1 (flash attention), K2 (decode attention) and K3 (int8
                decode attention) on the card at the serving shapes of
-               full-width qwen3-1.7b, each held against its plain PyTorch
-               version; kernel, plain and library times, and the card's
-               bound for the same work.
-  4. model   — full-width qwen3-1.7b (bf16, random weights from a seed):
-               prefill + 4 decode steps through the kernels and through
-               the plain versions; plus reduced f32 configs, kv_quant off
-               and on.
+               full-width qwen3-1.7b, and K4 (the mLSTM scan) at those of
+               full-width xlstm-350m, from the empty state, from a
+               nonzero state and for one decode step; each held against
+               its plain PyTorch version; kernel, plain and library
+               times, and the card's bound for the same work.
+  4. model   — full-width qwen3-1.7b and xlstm-350m (bf16, random weights
+               from a seed): prefill + 4 decode steps through the kernels
+               and through the plain versions; plus reduced f32 configs
+               (qwen3 with kv_quant off and on, xlstm).
   5. serve   — three full-width qwen3-1.7b TorchEndpoints behind the
                port's MQFQ-Sticky wall-clock control plane answer 12
                requests with cold, warm and host_warm starts, then one
-               kv_quant endpoint answers 3; the kernels' launch counts
-               are zeroed just before and read just after.
+               kv_quant endpoint answers 3; then three full-width
+               xlstm-350m endpoints answer 12 requests the same way.
+               Each path's kernel launch counts are zeroed just before it
+               and read just after. One warm request of each path is
+               profiled.
   6. the ``kernels`` line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
@@ -41,6 +46,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
 # kernel vs plain, bf16: the largest |difference| in a row of dh outputs
 # over the largest |plain value| in that row, at most 2**-6 (two to four
 # bf16 ulps of the row's largest value), so the check is as tight for the
@@ -48,9 +54,21 @@ BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 BF16_ROW_REL_TOL = 2.0 ** -6
 F32_MODEL_TOL = 1e-3             # reduced f32 model, kernels vs plain
 BF16_MODEL_REL_TOL = 5e-2        # full bf16 model: max|dlogit| / max|logit|
+# K4 vs plain, both f32 (only the summation order differs): the largest
+# |difference| in a row over the row's largest |plain value|, for h and
+# every leaf of the final state
+SCAN_ROW_REL_TOL = 1e-4
 
 # full-width qwen3-1.7b serving shapes (TorchEndpoint below)
 SERVE_SEQ, SERVE_BATCH, DECODE_STEPS = 1024, 4, 16
+# xlstm-350m at full width, cut to 4 of its 12 (mLSTM, sLSTM) pair
+# blocks. With the reference's random initialisation the residual stream
+# grows through each sLSTM block's gated FFN, which is quadratic in its
+# un-normalised input: max |x| after pairs 1-11 at B=4, S=1024 was 3.6,
+# 6.4, 9.4, 17, 54, 696, 1.2e5, 2.9e9, 2.1e18, 7.6e35, then inf (one H100
+# run, seed 0), so the full stack's bf16 logits are NaN; at 4 pairs
+# max |x| is 17.
+XLSTM_LAYERS = 8
 
 
 def emit(**kw) -> None:
@@ -84,9 +102,11 @@ def host_ms(fn, arg_sets, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled(fn):
+def profiled(fn, ranges=()):
     """Run ``fn()`` under torch.profiler; returns the device time (µs) of
-    each GPU kernel or memory operation name it ran."""
+    each GPU kernel or memory operation name it ran, and for each name in
+    ``ranges`` (host µs, device µs, calls) summed over the ranges of that
+    name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -94,11 +114,19 @@ def profiled(fn):
         fn()
         torch.cuda.synchronize()
     by_name = {}
+    spans = {r: [0.0, 0.0, 0] for r in ranges}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.name in spans:
+            if e.device_type != DeviceType.CPU:
+                continue    # the range mirrored on the device timeline
+            span = spans[e.name]
+            span[0] += e.cpu_time_total
+            span[1] += e.device_time_total
+            span[2] += 1
+        elif e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us()
-    return by_name
+    return by_name, {r: tuple(v) for r, v in spans.items()}
 
 
 SPIN_CYCLES_PER_S = 2.0e9    # above the H100's top SM clock (1.98 GHz)
@@ -152,9 +180,9 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound_ms(n_bytes: float, n_flops: float):
+def bound_ms(n_bytes: float, n_flops: float, flops_per_s=BF16_FLOPS):
     tb = n_bytes / HBM_BYTES_PER_S * 1e3
-    tf = n_flops / BF16_FLOPS * 1e3
+    tf = n_flops / flops_per_s * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
@@ -169,13 +197,15 @@ def row_rel_err(out, ref) -> float:
     return float((d / ref.float().abs().amax(-1).clamp_min(1e-30)).max())
 
 
-def check_kernel(name, out, ref, **case) -> dict:
-    """Hold a kernel's output against its plain version's; raise past
-    the tolerance."""
-    err = dict(max_abs_err=max_err(out, ref),
-               max_row_rel_err=row_rel_err(out, ref),
-               row_rel_tol=BF16_ROW_REL_TOL)
-    if not err["max_row_rel_err"] <= BF16_ROW_REL_TOL:
+def check_kernel(name, out, ref, tol=BF16_ROW_REL_TOL, **case) -> dict:
+    """Hold a kernel's output (a tensor, or a tuple of them) against its
+    plain version's; raise past the tolerance."""
+    outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+    err = dict(max_abs_err=max(max_err(o, r) for o, r in zip(outs, refs)),
+               max_row_rel_err=max(row_rel_err(o, r)
+                                   for o, r in zip(outs, refs)),
+               row_rel_tol=tol)
+    if not err["max_row_rel_err"] <= tol:
         raise AssertionError(f"{name} disagrees with its plain version: "
                              f"{err} at {case}")
     return err
@@ -303,6 +333,60 @@ def check_decode(dec, attn, cfg, dev):
     return out
 
 
+def check_mlstm(k4, cfg, dev):
+    """K4 at the serving shapes of full-width xlstm-350m (f32, as the
+    model casts): a prefill from the omitted state, one from a nonzero
+    state (the first prefill's final state, as the model's prefill starts
+    from a state), and one decode step (S = 1) from that state. h and
+    every leaf of the final state are held against the plain version.
+    Returns the from-state prefill's numbers, the main path's shape."""
+    H = cfg.n_heads
+    dh = int(cfg.mlstm_proj_factor * cfg.d_model) // H
+    B = SERVE_BATCH
+    g = torch.Generator(dev).manual_seed(4)
+
+    def mk(S):
+        r = lambda *s: torch.randn(*s, generator=g, device=dev)
+        # as tests/test_kernels.py::TestMlstmScan: q and k scaled by
+        # dh^-0.5, forget gates shifted open by 2
+        return (r(B, S, H, dh) * dh ** -0.5, r(B, S, H, dh) * dh ** -0.5,
+                r(B, S, H, dh), r(B, S, H), r(B, S, H) + 2.0)
+    first = mk(SERVE_SEQ)
+    _, state = k4.mlstm_scan_plain(*first)
+    main = None
+    for label, S, st in [("prefill, no state", SERVE_SEQ, None),
+                         ("prefill from state", SERVE_SEQ, state),
+                         ("decode from state", 1, state)]:
+        args = first if st is None else mk(S)
+        h, fin = k4.mlstm_scan(*args, st)
+        ph, pfin = k4.mlstm_scan_plain(*args, st)
+        err = check_kernel("K4", (h,) + fin, (ph,) + pfin,
+                           tol=SCAN_ROW_REL_TOL, case=label)
+        in_bytes = nbytes(*args) + (nbytes(*st) if st is not None else 0)
+        out_bytes = nbytes(h, *fin)
+        sets = [mk(S) + (st,) for _ in range(n_sets(in_bytes + out_bytes))]
+        kern = device_ms(k4.mlstm_scan, sets)
+        kern_host = host_ms(k4.mlstm_scan, sets)
+        # the plain prefill is ~15 launches per step: 15k per call
+        # overflow the launch queue that device_ms fills behind its spin,
+        # so it is timed by CUDA events around the calls without the spin
+        # (the larger of its device and host time)
+        plain = (device_ms(k4.mlstm_scan_plain, sets, iters=8) if S == 1
+                 else host_ms(k4.mlstm_scan_plain, sets, iters=2))
+        # per step and (batch, head): f C, + i v k^T and C q (5 dh^2
+        # flops), n's update and n . q (5 dh); f32 on the CUDA cores
+        b_ms, b_by = bound_ms(in_bytes + out_bytes,
+                              B * H * S * (5 * dh * dh + 5 * dh), F32_FLOPS)
+        m = dict(**err, ms=kern, plain_ms=plain, library_ms=None,
+                 bound_ms=b_ms, bound_by=b_by)
+        emit(phase="kernel", name="K4 mlstm_scan", case=label, B=B, S=S,
+             H=H, dh=dh, host_ms=kern_host, plain_timing=(
+                 "device_ms" if S == 1 else "host_ms"), **m)
+        if label == "prefill from state":
+            main = m
+    return main
+
+
 # --- phase 4: the model through the kernels and the plain versions ------------
 
 def run_model(cfg, dev, B, S, steps, seed):
@@ -312,7 +396,9 @@ def run_model(cfg, dev, B, S, steps, seed):
     that agree."""
     from repro_torch.models import build_model, decode_cache_plan
     from repro_torch.models.transformer import PLAIN_OPS
-    kern_model, plain_model = build_model(cfg), build_model(cfg, PLAIN_OPS)
+    from repro_torch.models.xlstm import PLAIN_SCAN_OPS
+    kern_model = build_model(cfg)
+    plain_model = build_model(cfg, PLAIN_OPS, PLAIN_SCAN_OPS)
     params = kern_model.init_params(torch.Generator(dev).manual_seed(seed),
                                     dev)
     tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
@@ -368,42 +454,81 @@ def serve(endpoints, bursts, capacity_bytes):
     return res
 
 
-# requests of the main serving run: a burst of three requests for one
-# function on d=2 makes the third wait for a token and reuse a finished
-# request's container while the flow is still active (a warm start); a
-# third function past two weights' capacity evicts, and returning to an
-# evicted function gives a host_warm start
-BURSTS = [["qwen-0"] * 3, ["qwen-1"] * 3, ["qwen-2"] * 3, ["qwen-0"] * 2,
-          ["qwen-1"]]
+def bursts(prefix):
+    """Requests of a serving run over three functions ``prefix-0..2``: a
+    burst of three requests for one function on d=2 makes the third wait
+    for a token and reuse a finished request's container while the flow
+    is still active (a warm start); a third function past two weights'
+    capacity evicts, and returning to an evicted function gives a
+    host_warm start."""
+    f = [f"{prefix}-{i}" for i in range(3)]
+    return [[f[0]] * 3, [f[1]] * 3, [f[2]] * 3, [f[0]] * 2, [f[1]]]
 
 
-def profile_request(ep):
+BURSTS = bursts("qwen")
+XLSTM_BURSTS = bursts("xlstm")
+GEMM_NAME = re.compile(r"gemm|nvjet|cutlass|xmma|cublas", re.I)
+
+
+def profile_request(ep, ranges=None):
     """One warm request of ``ep`` under torch.profiler: wall time, the
     device's busy time (summed kernel and memory-operation durations; one
     stream, so they do not overlap), its idle share, and the kernels that
-    took the most device time."""
+    took the most device time. ``ranges`` maps a label to (module, name)
+    of a function that the request calls through its module: each call
+    is then wrapped in a profiler range of that label, and the range's
+    host time (wall time inside the calls) and device time (of the
+    kernels launched inside) are reported. The same request runs once
+    unprofiled first, so the profiler's own cost shows."""
+    from torch.profiler import record_function
+    ranges = ranges or {}
+    saved = {label: getattr(mod, fn) for label, (mod, fn) in ranges.items()}
+
+    def labelled(label, f):
+        def wrapped(*a, **kw):
+            with record_function(label):
+                return f(*a, **kw)
+        return wrapped
     with ep.lock:
         if not ep.resident:
             ep.upload()
+        t0 = time.monotonic()
+        ep.execute({"seed": 99})            # the same request, unprofiled
+        wall_off = time.monotonic() - t0
         wall = []
 
         def request():
             t0 = time.monotonic()
             ep.execute({"seed": 99})        # ends in a synchronize
             wall.append(time.monotonic() - t0)
-        by_name = profiled(request)
+        for label, (mod, fn) in ranges.items():
+            setattr(mod, fn, labelled(label, saved[label]))
+        try:
+            by_name, spans = profiled(request, tuple(ranges))
+        finally:
+            for label, (mod, fn) in ranges.items():
+                setattr(mod, fn, saved[label])
     wall = wall[0]
     if not by_name:
         # the trace came back without the device's activity: say so
         # rather than report an idle device
         return dict(request_wall_s=wall, device_busy_s=None,
+                    request_wall_unprofiled_s=wall_off,
                     idle_share=None, top_kernels_ms=None,
                     note="torch.profiler recorded no device time")
     busy = sum(by_name.values()) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return dict(request_wall_s=wall, device_busy_s=busy,
-                idle_share=1.0 - busy / wall,
-                top_kernels_ms=[[n[:90], us / 1e3] for n, us in top])
+    out = dict(request_wall_s=wall, request_wall_unprofiled_s=wall_off,
+               device_busy_s=busy,
+               idle_share=1.0 - busy / wall,
+               top_kernels_ms=[[n[:90], us / 1e3] for n, us in top],
+               gemm_device_ms=sum(us for n, us in by_name.items()
+                                  if GEMM_NAME.search(n)) / 1e3)
+    for label, (host_us, dev_us, calls) in spans.items():
+        out[label] = dict(calls=calls, host_s=host_us / 1e6,
+                          host_share=host_us / 1e6 / wall,
+                          device_ms=dev_us / 1e3)
+    return out
 
 
 def ptxas_summary(name: str) -> dict:
@@ -418,6 +543,69 @@ def ptxas_summary(name: str) -> dict:
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
     return dict(max_registers=max(regs, default=None),
                 spill_bytes=sum(spills))
+
+
+def model_phase(cfg, dev, name):
+    """The full-width bf16 model (kernels against plain, relative logit
+    limit) and its reduced f32 configs (absolute limit, greedy tokens all
+    equal)."""
+    t0 = time.monotonic()
+    diff, top, agree = run_model(cfg, dev, SERVE_BATCH, SERVE_SEQ, 4, seed=0)
+    emit(phase="model", config=f"{name} full width bf16",
+         n_layers=cfg.n_layers, B=SERVE_BATCH, S=SERVE_SEQ, decode_steps=4,
+         max_logit_diff=diff, max_abs_logit=top, rel=diff / max(top, 1e-30),
+         rel_tol=BF16_MODEL_REL_TOL, greedy_agree=agree,
+         seconds=time.monotonic() - t0)
+    if diff / max(top, 1e-30) >= BF16_MODEL_REL_TOL:
+        raise AssertionError(f"full-width {name}: kernels vs plain logits "
+                             f"differ by {diff} (max |logit| {top})")
+    variants = ([False, True] if cfg.family == "dense" else [None])
+    for kv_quant in variants:
+        small = cfg.reduced()
+        label = f"{name} reduced f32"
+        if kv_quant is not None:
+            small = dataclasses.replace(small, kv_quant=kv_quant)
+            label += f" kv_quant={kv_quant}"
+        diff, top, agree = run_model(small, dev, 2, 64, 4, seed=1)
+        emit(phase="model", config=label, max_logit_diff=diff,
+             tol=F32_MODEL_TOL, greedy_agree=agree)
+        if diff >= F32_MODEL_TOL or agree != 1.0:
+            raise AssertionError(f"{label}: logit diff {diff}, agree "
+                                 f"{agree}")
+
+
+def endpoints(TorchEndpoint, cfg, prefix, dev, seeds):
+    return {f"{prefix}-{i}": TorchEndpoint(
+        f"{prefix}-{i}", cfg, seed=s, serve_seq=SERVE_SEQ,
+        serve_batch=SERVE_BATCH, decode_steps=DECODE_STEPS, device=dev)
+        for i, s in enumerate(seeds)}
+
+
+def check_served(res, n_req, launches,
+                 start_types=("cold", "warm", "host_warm")):
+    """Every request completed, without failure, with each of
+    ``start_types``; every kernel of the path launched."""
+    if len(res.invocations) != n_req:
+        raise AssertionError("not every invocation completed")
+    if any(inv.completion is None or inv.failed for inv in res.invocations):
+        raise AssertionError("an invocation failed")
+    starts = res.start_type_counts()
+    for kind in start_types:
+        if starts.get(kind, 0) < 1:
+            raise AssertionError(f"no {kind} start: {starts}")
+    for name, n in launches.items():
+        if n < 1:
+            raise AssertionError(f"{name} was never launched while serving")
+
+
+def serve_summary(res, eps, seconds, n_req):
+    lats = sorted(inv.latency for inv in res.invocations)
+    toks = DECODE_STEPS * SERVE_BATCH * n_req
+    return dict(requests=n_req, completed=len(res.invocations),
+                start_types=res.start_type_counts(),
+                uploads={f: e.uploads for f, e in eps.items()},
+                seconds=seconds, tokens_per_s=toks / seconds,
+                p50_latency_s=lats[len(lats) // 2], max_latency_s=lats[-1])
 
 
 def main() -> int:
@@ -435,7 +623,9 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.flash_attention import ops as fl
+    from repro_torch.kernels.mlstm_scan import ops as k4
     from repro_torch.models import attention as attn
+    from repro_torch.models import xlstm
     from repro_torch.runtime.device import TorchEndpoint
 
     t_start = time.monotonic()
@@ -454,40 +644,20 @@ def main() -> int:
          ptxas={n: ptxas_summary(n) for n in secs})
 
     cfg = get_config("qwen3-1.7b")   # bf16, full width
+    xcfg = dataclasses.replace(get_config("xlstm-350m"),
+                               n_layers=XLSTM_LAYERS)   # bf16, full width
     k1 = check_flash(fl, cfg, dev)
     k23 = check_decode(dec, attn, cfg, dev)
+    k4m = check_mlstm(k4, xcfg, dev)
 
-    t0 = time.monotonic()
-    diff, top, agree = run_model(cfg, dev, SERVE_BATCH, SERVE_SEQ, 4, seed=0)
-    emit(phase="model", config="qwen3-1.7b full width bf16",
-         B=SERVE_BATCH, S=SERVE_SEQ, decode_steps=4, max_logit_diff=diff,
-         max_abs_logit=top, rel=diff / max(top, 1e-30),
-         rel_tol=BF16_MODEL_REL_TOL, greedy_agree=agree,
-         seconds=time.monotonic() - t0)
-    if diff / max(top, 1e-30) >= BF16_MODEL_REL_TOL:
-        raise AssertionError("full-width model: kernels vs plain logits "
-                             f"differ by {diff} (max |logit| {top})")
-    for kv_quant in (False, True):
-        small = dataclasses.replace(cfg.reduced(), kv_quant=kv_quant)
-        diff, top, agree = run_model(small, dev, 2, 64, 4, seed=1)
-        emit(phase="model", config=f"qwen3-1.7b reduced f32 "
-             f"kv_quant={kv_quant}", max_logit_diff=diff, tol=F32_MODEL_TOL,
-             greedy_agree=agree)
-        if diff >= F32_MODEL_TOL or agree != 1.0:
-            raise AssertionError(f"reduced f32 model (kv_quant={kv_quant}):"
-                                 f" logit diff {diff}, agree {agree}")
+    model_phase(cfg, dev, "qwen3-1.7b")
+    model_phase(xcfg, dev, "xlstm-350m")
 
     # -- the main path: serving, through the kernels -------------------------
     t0 = time.monotonic()
-    eps = {f"qwen-{i}": TorchEndpoint(
-        f"qwen-{i}", cfg, seed=i, serve_seq=SERVE_SEQ,
-        serve_batch=SERVE_BATCH, decode_steps=DECODE_STEPS, device=dev)
-        for i in range(3)}
+    eps = endpoints(TorchEndpoint, cfg, "qwen", dev, range(3))
     qcfg = dataclasses.replace(cfg, kv_quant=True)
-    qep = {"qwen-q8": TorchEndpoint("qwen-q8", qcfg, seed=3,
-                                    serve_seq=SERVE_SEQ,
-                                    serve_batch=SERVE_BATCH,
-                                    decode_steps=DECODE_STEPS, device=dev)}
+    qep = endpoints(TorchEndpoint, qcfg, "qwen-q8", dev, [3])
     weight_bytes = eps["qwen-0"].weight_bytes
     emit(phase="endpoints", n=4, weight_bytes=weight_bytes,
          seconds=time.monotonic() - t0)
@@ -499,34 +669,49 @@ def main() -> int:
     t0 = time.monotonic()
     res = serve(eps, BURSTS, 2 * weight_bytes)
     t_main = time.monotonic() - t0
-    qres = serve(qep, [["qwen-q8"], ["qwen-q8", "qwen-q8"]],
+    qres = serve(qep, [["qwen-q8-0"], ["qwen-q8-0", "qwen-q8-0"]],
                  2 * weight_bytes)
     launches = {k: w.launches for k, w in wrappers.items()}
 
     n_req = sum(len(b) for b in BURSTS)
-    starts = res.start_type_counts()
-    lats = sorted(inv.latency for inv in res.invocations)
-    toks = DECODE_STEPS * SERVE_BATCH * n_req
-    emit(phase="serve", requests=n_req, completed=len(res.invocations),
-         start_types=starts, uploads={f: e.uploads for f, e in eps.items()},
-         seconds=t_main, tokens_per_s=toks / t_main,
-         p50_latency_s=lats[len(lats) // 2], max_latency_s=lats[-1],
+    emit(phase="serve", model="qwen3-1.7b",
+         **serve_summary(res, eps, t_main, n_req),
          kv_quant_completed=len(qres.invocations),
          kv_quant_start_types=qres.start_type_counts(), launches=launches)
-    if len(res.invocations) != n_req or len(qres.invocations) != 3:
-        raise AssertionError("not every invocation completed")
-    if any(inv.completion is None or inv.failed
-           for inv in res.invocations + qres.invocations):
-        raise AssertionError("an invocation failed")
-    for kind in ("cold", "warm", "host_warm"):
-        if starts.get(kind, 0) < 1:
-            raise AssertionError(f"no {kind} start: {starts}")
-    for name, n in launches.items():
-        if n < 1:
-            raise AssertionError(f"{name} was never launched while serving")
+    check_served(qres, 3, {}, start_types=())
+    check_served(res, n_req, launches)
 
     emit(phase="profile", endpoint="qwen-0", profiler_on=True,
          **profile_request(eps["qwen-0"]))
+    del eps, qep, res, qres
+    torch.cuda.empty_cache()
+
+    # -- the xLSTM path: serving, through K4 ---------------------------------
+    t0 = time.monotonic()
+    xeps = endpoints(TorchEndpoint, xcfg, "xlstm", dev, range(3))
+    x_weight_bytes = xeps["xlstm-0"].weight_bytes
+    emit(phase="endpoints", model="xlstm-350m", n=3,
+         weight_bytes=x_weight_bytes, seconds=time.monotonic() - t0)
+    k4.mlstm_scan.launches = 0
+    t0 = time.monotonic()
+    xres = serve(xeps, XLSTM_BURSTS, 2 * x_weight_bytes)
+    t_x = time.monotonic() - t0
+    launches["K4"] = k4.mlstm_scan.launches
+    n_xreq = sum(len(b) for b in XLSTM_BURSTS)
+    P = xcfg.n_layers // 2
+    emit(phase="serve", model="xlstm-350m",
+         **serve_summary(xres, xeps, t_x, n_xreq),
+         launches={"K4": launches["K4"]},
+         # one launch per pair block for the prefill and for each decode
+         # step; each endpoint's compile() runs a prefill and one step
+         expected_k4_launches=f"{P} x (1 + {DECODE_STEPS}) per request + "
+                              f"{P} x 2 per endpoint warm-up")
+    check_served(xres, n_xreq, {"K4": launches["K4"]})
+
+    emit(phase="profile", endpoint="xlstm-0", profiler_on=True,
+         **profile_request(xeps["xlstm-0"], {
+             "slstm": (xlstm, "slstm_apply"),
+             "mlstm": (xlstm, "mlstm_apply")}))
 
     rows = [("K1", "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:95", k1),
@@ -535,7 +720,9 @@ def main() -> int:
              "src/repro/kernels/decode_attention/kernel.py:107", k23["K2"]),
             ("K3", "decode_attention_quant",
              "src/repro_torch/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention/kernel.py:207", k23["K3"])]
+             "src/repro/kernels/decode_attention/kernel.py:207", k23["K3"]),
+            ("K4", "mlstm_scan", "src/repro_torch/csrc/mlstm_scan.cu",
+             "src/repro/kernels/mlstm_scan/kernel.py:87", k4m)]
     print(json.dumps({"kernels": [
         dict(name=f"{k} {name}", route="cuda", source=src_,
              replaces=rep, launches=launches[k], **m)

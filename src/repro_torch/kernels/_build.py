@@ -28,7 +28,8 @@ BUILD = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# the element types and head dims the kernels are instantiated for
+# the element types and head dims the attention kernels are instantiated
+# for
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 256)
 
@@ -99,16 +100,18 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def entry(source: str, name: str, n_ptrs: int, n_ints: int):
+def entry(source: str, name: str, n_ptrs: int, n_ints: int,
+          n_floats: int = 1):
     """The C function ``name`` of ``csrc/<source>.cu``, typed once: it
-    takes ``n_ptrs`` pointers, ``n_ints`` ints, the softmax scale (float)
-    and the stream, and returns a cudaError_t."""
+    takes ``n_ptrs`` pointers, ``n_ints`` ints, ``n_floats`` floats (the
+    attention kernels' one is the softmax scale) and the stream, and
+    returns a cudaError_t."""
     fn = _entries.get(name)
     if fn is None:
         fn = getattr(library(source), name)
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         _entries[name] = fn
     return fn
 

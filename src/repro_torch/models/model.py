@@ -5,7 +5,8 @@
   - ``prefill_fn(params, batch)``                (prompt -> cache)
   - ``decode_fn(params, cache, tokens, pos)``    (serve_step)
   - cache/batch shape planning per input shape
-The dense family is ported; the others raise ``NotImplementedError``
+The dense family and xLSTM (``family == "ssm"``, whose cache is its
+recurrent state) are ported; the others raise ``NotImplementedError``
 naming their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, transformer
+from repro_torch.models import common, transformer, xlstm, xlstm_stack
 from repro_torch.shapes import InputShape
 
 
@@ -47,6 +48,12 @@ class Model:
     cfg: ModelConfig
     param_table: Any
     ops: transformer.AttentionOps = transformer.KERNEL_OPS
+    scan_ops: xlstm.ScanOps = xlstm.KERNEL_SCAN_OPS
+
+    @property
+    def stateful(self) -> bool:
+        """The cache is the recurrent state (xLSTM)."""
+        return self.cfg.family == "ssm"
 
     # -- parameters ------------------------------------------------------
     def init_params(self, generator: torch.Generator, device) -> Dict:
@@ -55,20 +62,30 @@ class Model:
 
     # -- steps ------------------------------------------------------------
     def prefill_fn(self, params, batch, cache_len=None, ring=False):
+        if self.stateful:
+            return xlstm_stack.prefill(self.cfg, params, batch["tokens"],
+                                       ops=self.scan_ops)
         return transformer.prefill(self.cfg, params, batch["tokens"],
                                    cache_len=cache_len, ring=ring,
                                    ops=self.ops)
 
     def decode_fn(self, params, cache, tokens, pos, ring=False):
+        if self.stateful:
+            return xlstm_stack.decode_step(self.cfg, params, cache, tokens,
+                                           pos, ops=self.scan_ops)
         return transformer.decode_step(self.cfg, params, cache, tokens, pos,
                                        ring=ring, ops=self.ops)
 
     # -- shapes -----------------------------------------------------------
     def cache_shapes(self, batch: int, plan: CachePlan):
+        if self.stateful:
+            return xlstm_stack.state_shapes(self.cfg, batch)
         return transformer.cache_shapes(self.cfg, batch, plan.length,
                                         plan.ring)
 
     def zero_cache(self, batch: int, plan: CachePlan, device) -> Dict:
+        if self.stateful:
+            return xlstm_stack.zero_state(self.cfg, batch, device)
         return transformer.zero_cache(self.cfg, batch, plan.length,
                                       plan.ring, device)
 
@@ -96,8 +113,12 @@ class Model:
 
 
 def build_model(cfg: ModelConfig,
-                ops: transformer.AttentionOps = transformer.KERNEL_OPS
-                ) -> Model:
-    """A dense-family model; ``ops`` picks the attention implementation
-    (``transformer.KERNEL_OPS`` or ``transformer.PLAIN_OPS``)."""
-    return Model(cfg, transformer.decoder_param_table(cfg), ops)
+                ops: transformer.AttentionOps = transformer.KERNEL_OPS,
+                scan_ops: xlstm.ScanOps = xlstm.KERNEL_SCAN_OPS) -> Model:
+    """A dense-family or xLSTM model; ``ops`` picks the attention
+    implementation (``transformer.KERNEL_OPS`` or ``PLAIN_OPS``) and
+    ``scan_ops`` the mLSTM scan's (``xlstm.KERNEL_SCAN_OPS`` or
+    ``PLAIN_SCAN_OPS``)."""
+    if cfg.family == "ssm":
+        return Model(cfg, xlstm_stack.param_table(cfg), ops, scan_ops)
+    return Model(cfg, transformer.decoder_param_table(cfg), ops, scan_ops)

@@ -3,7 +3,10 @@
 
 A ``TorchEndpoint`` is one serveable function: a model, host-resident
 weights (pinned CPU memory when the device is a GPU), and the prefill /
-decode steps that run on the hand-written CUDA kernels. It keeps
+decode steps that run on the hand-written CUDA kernels. For xLSTM the
+cache is the recurrent state (``CachePlan("state", 0)``): prefill
+returns it and each decode step continues from it, ignoring ``pos`` as
+the reference does. It keeps
 ``JaxEndpoint``'s duck type, so the control plane's memory "regions" map
 to real bytes here:
 

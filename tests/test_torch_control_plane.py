@@ -121,15 +121,16 @@ def test_make_server_refuses_unported_paths():
         make_policy("ref-mqfq-sticky")
 
 
-def test_wallclock_server_drains_torch_endpoints_on_cpu():
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "xlstm-350m"])
+def test_wallclock_server_drains_torch_endpoints_on_cpu(arch):
     from repro_torch.configs import get_config
     from repro_torch.runtime.device import TorchEndpoint
     from repro_torch.server import ServerConfig, make_server
 
-    cfg = get_config("qwen3-1.7b").reduced()
-    eps = {f"qwen-{i}": TorchEndpoint(f"qwen-{i}", cfg, seed=i,
-                                      serve_seq=16, serve_batch=1,
-                                      decode_steps=2, device="cpu")
+    cfg = get_config(arch).reduced()
+    eps = {f"fn-{i}": TorchEndpoint(f"fn-{i}", cfg, seed=i, serve_seq=16,
+                                    serve_batch=1, decode_steps=2,
+                                    device="cpu")
            for i in range(2)}
     wb = max(ep.weight_bytes for ep in eps.values())
     server = make_server(ServerConfig(executor="wallclock",
@@ -137,7 +138,7 @@ def test_wallclock_server_drains_torch_endpoints_on_cpu():
                                       capacity_bytes=wb), endpoints=eps)
     server.start()
     try:
-        for i, fn in enumerate(["qwen-0", "qwen-0", "qwen-1", "qwen-0"]):
+        for i, fn in enumerate(["fn-0", "fn-0", "fn-1", "fn-0"]):
             server.submit(fn, {"seed": i})
             server.drain(timeout=120)
     finally:

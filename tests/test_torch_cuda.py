@@ -1,10 +1,13 @@
-"""The port's CUDA kernels K1-K3 against their plain PyTorch versions, on
+"""The port's CUDA kernels K1-K4 against their plain PyTorch versions, on
 the card. Every test here is marked ``cuda`` and skips where no CUDA card
 is present. On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: 2e-5 for float32 (summation order only), 2e-2 for bfloat16.
+Tolerances: 2e-5 for float32 (summation order only), 2e-2 for bfloat16;
+for the mLSTM scan (K4, float32 only), whose state sums S steps, the
+largest |difference| in a row over the row's largest |plain value| at
+most 1e-4.
 This file imports no JAX, so it runs where JAX is absent.
 """
 import pytest
@@ -14,6 +17,7 @@ torch.set_num_threads(1)
 
 from repro_torch.kernels.decode_attention import ops as dec  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fl  # noqa: E402
+from repro_torch.kernels.mlstm_scan import ops as k4  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -106,3 +110,51 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                      device="cuda").transpose(1, 2)   # (1, 32, 2, 64)
     with pytest.raises(ValueError, match="contiguous"):
         dec.decode_attention(q, ck, ck, 3)
+
+
+def _row_rel(out, ref) -> float:
+    d = (out - ref).abs().amax(-1)
+    return (d / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def _scan_inputs(gen, B, S, H, dh):
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    return (r(B, S, H, dh) * dh ** -0.5, r(B, S, H, dh) * dh ** -0.5,
+            r(B, S, H, dh), r(B, S, H), r(B, S, H) + 2.0)
+
+
+@pytest.mark.parametrize("dh", [32, 128, 512])
+@pytest.mark.parametrize("S", [1, 100, 1024])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mlstm_kernel_vs_plain(gen, dh, S, with_state):
+    B, H = 2, 2
+    state = None
+    if with_state:
+        # a state the recurrence reached: the final state of a first scan
+        _, state = k4.mlstm_scan_plain(*_scan_inputs(gen, B, 64, H, dh))
+    args = _scan_inputs(gen, B, S, H, dh)
+    before = k4.mlstm_scan.launches
+    h, (C, n, m) = k4.mlstm_scan(*args, state)
+    rh, (rC, rn, rm) = k4.mlstm_scan_plain(*args, state)
+    torch.cuda.synchronize()
+    assert k4.mlstm_scan.launches == before + 1
+    assert h.shape == args[0].shape and C.shape == (B, H, dh, dh)
+    for name, a, b in [("h", h, rh), ("C", C, rC), ("n", n, rn),
+                       ("m", m, rm)]:
+        assert _row_rel(a, b) <= 1e-4, name
+
+
+def test_mlstm_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    args = _scan_inputs(gen, 1, 8, 2, 64)
+    with pytest.raises(ValueError, match="float32"):
+        k4.mlstm_scan(*(a.bfloat16() for a in args))
+    q = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.mlstm_scan(q, *args[1:])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        k4.mlstm_scan(args[0], args[1].cpu(), *args[2:])
+    _, state = k4.mlstm_scan_plain(*args)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        k4.mlstm_scan(*args, tuple(t.cpu() for t in state))
+    with pytest.raises(ValueError, match="head dim"):
+        k4.mlstm_scan(*_scan_inputs(gen, 1, 8, 2, 48))

@@ -62,7 +62,8 @@ VERBATIM = ["runtime/invocation.py", "core/flow.py", "core/index.py",
             "core/fairness.py", "memory/manager.py", "memory/pool.py",
             "faults/plan.py", "faults/inject.py", "faults/__init__.py",
             "server/events.py", "server/metrics.py", "server/control.py",
-            "server/stub.py"]
+            "server/stub.py", "configs/qwen3_1_7b.py",
+            "configs/xlstm_350m.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -99,16 +100,18 @@ def test_cut_modules_keep_their_carried_parts_verbatim():
 def test_configs_match_reference():
     import dataclasses
     from repro.configs import get_config as ref_get
-    from repro_torch.configs import get_config
-    port, ref = get_config("qwen3-1.7b"), ref_get("qwen3-1.7b")
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-    assert dataclasses.asdict(port.reduced()) == \
-        dataclasses.asdict(ref.reduced())
-    assert port.compute_dtype is torch.bfloat16
-    assert port.reduced().weight_dtype is torch.float32
-    assert port.n_params() == ref.n_params()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("xlstm-350m")
+    from repro_torch.configs import ARCH_IDS, get_config
+    assert ARCH_IDS == ["qwen3-1.7b", "xlstm-350m"]
+    for arch in ARCH_IDS:
+        port, ref = get_config(arch), ref_get(arch)
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref), arch
+        assert dataclasses.asdict(port.reduced()) == \
+            dataclasses.asdict(ref.reduced()), arch
+        assert port.compute_dtype is torch.bfloat16
+        assert port.reduced().weight_dtype is torch.float32
+        assert port.n_params() == ref.n_params(), arch
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 7"):
+        get_config("hymba-1.5b")
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
