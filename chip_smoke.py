@@ -9,22 +9,27 @@ exits non-zero:
   2. build   — compile the CUDA kernels from ``src/repro_torch/csrc``.
   3. kernels — K1 (flash attention), K2 (decode attention) and K3 (int8
                decode attention) on the card at the serving shapes of
-               full-width qwen3-1.7b, and K4 (the mLSTM scan) at those of
-               full-width xlstm-350m, from the empty state, from a
-               nonzero state and for one decode step; each held against
-               its plain PyTorch version; kernel, plain and library
-               times, and the card's bound for the same work.
-  4. model   — full-width qwen3-1.7b and xlstm-350m (bf16, random weights
-               from a seed): prefill + 4 decode steps through the kernels
-               and through the plain versions; plus reduced f32 configs
-               (qwen3 with kv_quant off and on, xlstm).
+               full-width qwen3-1.7b, K4 (the mLSTM scan) at those of
+               full-width xlstm-350m, and K5 (the SSM scan) at those of
+               full-width hymba-1.5b, the scans from the empty state,
+               from a nonzero state and for one decode step; K1 and K2
+               also at hymba's heads (25 of dh 64 over 5 kv heads) with
+               its window and ring cache; each held against its plain
+               PyTorch version; kernel, plain and library times, and the
+               card's bound for the same work.
+  4. model   — full-width qwen3-1.7b, xlstm-350m and hymba-1.5b (bf16,
+               random weights from a seed): prefill + 4 decode steps
+               through the kernels and through the plain versions; plus
+               reduced f32 configs (qwen3 and hymba with kv_quant off and
+               on, xlstm).
   5. serve   — three full-width qwen3-1.7b TorchEndpoints behind the
                port's MQFQ-Sticky wall-clock control plane answer 12
                requests with cold, warm and host_warm starts, then one
                kv_quant endpoint answers 3; then three full-width
-               xlstm-350m endpoints answer 12 requests the same way.
-               Each path's kernel launch counts are zeroed just before it
-               and read just after. One warm request of each path is
+               xlstm-350m endpoints, and three full-width hymba-1.5b
+               endpoints, answer 12 requests each the same way. Each
+               path's kernel launch counts are zeroed just before it and
+               read just after. One warm request of each path is
                profiled.
   6. the ``kernels`` line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
@@ -58,6 +63,9 @@ BF16_MODEL_REL_TOL = 5e-2        # full bf16 model: max|dlogit| / max|logit|
 # |difference| in a row over the row's largest |plain value|, for h and
 # every leaf of the final state
 SCAN_ROW_REL_TOL = 1e-4
+# K5 vs plain: y and the float32 final state at SCAN_ROW_REL_TOL when x is
+# float32; when x is bf16 (the model's case) y, rounded from float32 on
+# both sides, at BF16_ROW_REL_TOL and the state still at SCAN_ROW_REL_TOL
 
 # full-width qwen3-1.7b serving shapes (TorchEndpoint below)
 SERVE_SEQ, SERVE_BATCH, DECODE_STEPS = 1024, 4, 16
@@ -69,6 +77,21 @@ SERVE_SEQ, SERVE_BATCH, DECODE_STEPS = 1024, 4, 16
 # run, seed 0), so the full stack's bf16 logits are NaN; at 4 pairs
 # max |x| is 17.
 XLSTM_LAYERS = 8
+# hymba-1.5b runs at full width and all 32 layers: each block rms-normalises
+# both branch outputs and the MLP input, and max |x| after each layer grows
+# linearly, 4.6 after layer 1 to 28.5 after layer 32 (one H100 run, seed 0;
+# the model phase prints it).
+# HYBRID_MODEL_CHECK. At |x| of 16-28 a bf16 residual stream rounds to
+# steps of 1/8, so a rounding flip anywhere spreads through the 32 layers:
+# the bf16 plain model is itself 7.4% (max |dlogit| / max |logit|) from
+# its float32 evaluation on the same weights and tokens (the model line's
+# plain_bf16_to_f32; one H100 run, seed 0), more than BF16_MODEL_REL_TOL,
+# so kernels vs plain in bf16 cannot be held to that limit. Full-width
+# hymba is held instead (1) in float32, kernels vs plain under
+# F32_MODEL_TOL (the kernels must compute the model's function at full
+# size and depth), and (2) in bf16, the kernels' distance to the float32
+# logits may exceed the plain versions' own by less than
+# BF16_MODEL_REL_TOL.
 
 
 def emit(**kw) -> None:
@@ -213,16 +236,20 @@ def check_kernel(name, out, ref, tol=BF16_ROW_REL_TOL, **case) -> dict:
 
 # --- phase 3: kernels against their plain versions ----------------------------
 
-def check_flash(fl, cfg, dev):
-    """K1 at the prefill shape (causal), with a window, and unaligned."""
+FLASH_CASES = [(SERVE_BATCH, SERVE_SEQ, 0), (SERVE_BATCH, SERVE_SEQ, 256),
+               (2, 200, 0)]
+
+
+def check_flash(fl, cfg, dev, cases=FLASH_CASES, model="qwen3-1.7b"):
+    """K1 at the prefill shape (causal), with a window, and unaligned
+    (``cases``: (B, S, window) each); returns the first case's numbers."""
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = torch.Generator(dev).manual_seed(1)
     mk = lambda B, S: tuple(
         torch.randn(B, S, n, dh, generator=g, device=dev,
                     dtype=torch.bfloat16) for n in (H, KV, KV))
     main = None
-    for B, S, window in [(SERVE_BATCH, SERVE_SEQ, 0),
-                         (SERVE_BATCH, SERVE_SEQ, 256), (2, 200, 0)]:
+    for B, S, window in cases:
         q, k, v = mk(B, S)
         err = check_kernel("K1", fl.flash_attention(q, k, v, window=window),
                            fl.flash_attention_plain(q, k, v, window=window),
@@ -242,23 +269,29 @@ def check_flash(fl, cfg, dev):
         b_ms, b_by = bound_ms(nbytes(q, k, v) + nbytes(q),
                               4 * B * H * dh * pairs)
         lib = None
-        if not window:
+        if not window or window >= S:    # a window that masks nothing
             tsets = [tuple(t.transpose(1, 2).contiguous() for t in s)
                      for s in sets]
             lib = device_ms(lambda q, k, v: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), tsets)
         m = dict(**err, ms=kern, plain_ms=plain, library_ms=lib,
                  bound_ms=b_ms, bound_by=b_by)
-        emit(phase="kernel", name="K1 flash_attention", B=B, S=S, H=H,
-             KV=KV, dh=dh, window=window, host_ms=kern_host, **m)
+        emit(phase="kernel", name="K1 flash_attention", model=model, B=B,
+             S=S, H=H, KV=KV, dh=dh, window=window, host_ms=kern_host, **m)
         if main is None:
             main = m
     return main
 
 
-def check_decode(dec, attn, cfg, dev):
+DECODE_CASES = [("full", SERVE_SEQ + DECODE_STEPS - 1, False, 0),
+                ("ring", 3 * SERVE_SEQ + 17, True, 256)]
+
+
+def check_decode(dec, attn, cfg, dev, cases=DECODE_CASES, quant=True,
+                 model="qwen3-1.7b"):
     """K2 on a full cache (query past its end, as serving decodes) and on
-    a ring cache with pos > S; K3 on the int8 full cache."""
+    a ring cache with pos > S (``cases``: (label, pos, ring, window)
+    each); K3 on the int8 full cache unless ``quant`` is False."""
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     B, S = SERVE_BATCH, SERVE_SEQ
     g = torch.Generator(dev).manual_seed(2)
@@ -266,8 +299,7 @@ def check_decode(dec, attn, cfg, dev):
                                dtype=torch.bfloat16)
     mk = lambda: (r(B, 1, H, dh), r(B, S, KV, dh), r(B, S, KV, dh))
     out = {}
-    for label, pos, ring, window in [("full", S + DECODE_STEPS - 1, False, 0),
-                                     ("ring", 3 * S + 17, True, 256)]:
+    for label, pos, ring, window in cases:
         q, ck, cv = mk()
         err = check_kernel(
             "K2", dec.decode_attention(q, ck, cv, pos, window=window,
@@ -291,7 +323,7 @@ def check_decode(dec, attn, cfg, dev):
         b_ms, b_by = bound_ms(kv_bytes + 2 * nbytes(q),
                               4 * B * H * dh * n_valid)
         lib = None
-        if not ring:
+        if n_valid == S:     # every slot attended: the order does not matter
             tsets = [(q.transpose(1, 2).contiguous(),
                       k.transpose(1, 2).contiguous(),
                       v.transpose(1, 2).contiguous()) for q, k, v in sets]
@@ -299,10 +331,12 @@ def check_decode(dec, attn, cfg, dev):
                 q, k, v, enable_gqa=True), tsets)
         m = dict(**err, ms=kern, plain_ms=plain, library_ms=lib,
                  bound_ms=b_ms, bound_by=b_by)
-        emit(phase="kernel", name="K2 decode_attention", cache=label, B=B,
-             S=S, H=H, KV=KV, dh=dh, pos=pos, window=window,
-             valid_slots=n_valid, host_ms=kern_host, **m)
+        emit(phase="kernel", name="K2 decode_attention", model=model,
+             cache=label, B=B, S=S, H=H, KV=KV, dh=dh, pos=pos,
+             window=window, valid_slots=n_valid, host_ms=kern_host, **m)
         out.setdefault("K2", m)
+    if not quant:
+        return out
 
     def mk8():
         q, ck, cv = mk()
@@ -387,48 +421,179 @@ def check_mlstm(k4, cfg, dev):
     return main
 
 
+def check_ssm(k5, cfg, dev):
+    """K5 at the serving shapes of full-width hymba-1.5b, with x, a_log and
+    d_skip in the model's bf16: a prefill from the omitted state, one from
+    a nonzero state (the first prefill's final state; the model's prefill
+    starts from its cache's state) and one decode step (S = 1) from that
+    state; then the prefill from a state with x, a_log and d_skip in f32.
+    y and the final state are held against the plain version. a_log,
+    d_skip and dt are drawn from a seed, so every head has its own A and D.
+    Returns the bf16 prefill from a state's numbers, the main path's
+    shape."""
+    Hs, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    B = SERVE_BATCH
+    g = torch.Generator(dev).manual_seed(5)
+
+    def mk(S, dtype):
+        # as tests/test_kernels.py::TestSsmScan: normal x, b, c, d_skip,
+        # dt = softplus(normal), a_log = 0.3 * normal
+        r = lambda *s: torch.randn(*s, generator=g, device=dev)
+        return (r(B, S, Hs, P).to(dtype), F.softplus(r(B, S, Hs)),
+                (r(Hs) * 0.3).to(dtype), r(B, S, N), r(B, S, N),
+                r(Hs).to(dtype))
+    bf16 = torch.bfloat16
+    first = mk(SERVE_SEQ, bf16)
+    _, state = k5.ssm_scan_plain(*first)
+    main = None
+    for label, S, st, dtype in [
+            ("prefill, no state", SERVE_SEQ, None, bf16),
+            ("prefill from state", SERVE_SEQ, state, bf16),
+            ("decode from state", 1, state, bf16),
+            ("prefill from state, f32", SERVE_SEQ, state, torch.float32)]:
+        args = first if st is None else mk(S, dtype)
+        y, fin = k5.ssm_scan(*args, st)
+        py, pfin = k5.ssm_scan_plain(*args, st)
+        y_tol = BF16_ROW_REL_TOL if dtype == bf16 else SCAN_ROW_REL_TOL
+        err_y = check_kernel("K5 y", y, py, tol=y_tol, case=label)
+        err_s = check_kernel("K5 state", fin, pfin, tol=SCAN_ROW_REL_TOL,
+                             case=label)
+        in_bytes = nbytes(*args) + (nbytes(st) if st is not None else 0)
+        out_bytes = nbytes(y, fin)
+        sets = [mk(S, dtype) + (st,)
+                for _ in range(n_sets(in_bytes + out_bytes))]
+        kern = device_ms(k5.ssm_scan, sets)
+        kern_host = host_ms(k5.ssm_scan, sets)
+        # the plain prefill is ~10 launches per step, as K4's plain scan:
+        # CUDA events around the calls without the spin
+        plain = (device_ms(k5.ssm_scan_plain, sets, iters=8) if S == 1
+                 else host_ms(k5.ssm_scan_plain, sets, iters=2))
+        # per step and state element: S * decay, + u b, S . c (5 flops);
+        # per step and row: u = dt x and the D skip (3); f32 CUDA cores
+        b_ms, b_by = bound_ms(in_bytes + out_bytes,
+                              B * S * Hs * P * (5 * N + 3), F32_FLOPS)
+        m = dict(max_abs_err=max(err_y["max_abs_err"], err_s["max_abs_err"]),
+                 ms=kern, plain_ms=plain, library_ms=None, bound_ms=b_ms,
+                 bound_by=b_by)
+        emit(phase="kernel", name="K5 ssm_scan", case=label, B=B, S=S,
+             Hs=Hs, P=P, N=N, x_dtype=str(dtype).split(".")[-1],
+             y_row_rel_err=err_y["max_row_rel_err"], y_row_rel_tol=y_tol,
+             state_row_rel_err=err_s["max_row_rel_err"],
+             state_row_rel_tol=SCAN_ROW_REL_TOL, host_ms=kern_host,
+             plain_timing="device_ms" if S == 1 else "host_ms", **m)
+        if label == "prefill from state":
+            main = m
+    return main
+
+
 # --- phase 4: the model through the kernels and the plain versions ------------
 
-def run_model(cfg, dev, B, S, steps, seed):
-    """Prefill + ``steps`` decode steps through the kernels, then the same
-    tokens through the plain versions. Returns the largest logit
-    difference, the largest |logit|, and the fraction of greedy tokens
-    that agree."""
+def perturb_ssm(params, seed):
+    """a_log, d_skip and dt_bias of a hybrid model drawn from a seed, every
+    layer and head apart: the reference's initialisation makes them 0, 1
+    and 0, so every head would have A = -1 and D = 1."""
+    layers = params["layers"]
+    g = torch.Generator(layers["a_log"].device).manual_seed(seed)
+    for name, scale, shift in [("a_log", 0.3, 0.0), ("d_skip", 1.0, 0.0),
+                               ("dt_bias", 0.5, -0.5)]:
+        t = layers[name]
+        t.copy_(torch.randn(t.shape, generator=g, device=t.device) * scale
+                + shift)
+
+
+def layer_max_abs(transformer, run):
+    """``run()`` with ``transformer.block_apply`` wrapped so that each
+    call's output max |x| is recorded; returns them in call order."""
+    block_apply = transformer.block_apply
+    seen = []
+
+    def recorded(*a, **kw):
+        x = block_apply(*a, **kw)
+        seen.append(x)
+        return x
+    transformer.block_apply = recorded
+    try:
+        run()
+    finally:
+        transformer.block_apply = block_apply
+    return [float(x.float().abs().max()) for x in seen]
+
+
+def trajectory(model, params, tokens, plan, steps, feed=None):
+    """Float32 logits (steps + 1, B, vocab) of a prefill of ``tokens`` and
+    ``steps`` decode steps, each fed ``feed[:, i]`` or, without ``feed``,
+    the greedy token; returns them and the tokens fed."""
+    S = tokens.shape[1]
+    logits, fed = [], []
+    with torch.inference_mode():
+        lg, cache = model.prefill_fn(params, {"tokens": tokens},
+                                     plan.length, plan.ring)
+        for i in range(steps + 1):
+            logits.append(lg.float())
+            if i == steps:
+                break
+            tok = (feed[:, i:i + 1] if feed is not None
+                   else torch.argmax(lg, -1)[:, None].to(torch.int32))
+            fed.append(tok)
+            lg, cache = model.decode_fn(params, cache, tok, S + i, plan.ring)
+    return torch.stack(logits), torch.cat(fed, dim=1)
+
+
+def run_model(cfg, dev, B, S, steps, seed, f32_truth=False):
+    """Prefill + ``steps`` greedy decode steps through the kernels, then
+    the same tokens through the plain versions. Returns the largest logit
+    difference, the largest |logit|, their ratio, and the fraction of
+    greedy tokens that agree; for a hybrid model the max |x| after each
+    layer of the kernels' prefill. With ``f32_truth``, the same weights
+    and tokens also go through the kernels and the plain versions in
+    float32: their largest logit difference, and each bf16 path's largest
+    logit difference to the float32 plain logits over their largest
+    |logit|."""
     from repro_torch.models import build_model, decode_cache_plan
+    from repro_torch.models import transformer
+    from repro_torch.models.common import tree_map
     from repro_torch.models.transformer import PLAIN_OPS
     from repro_torch.models.xlstm import PLAIN_SCAN_OPS
     kern_model = build_model(cfg)
     plain_model = build_model(cfg, PLAIN_OPS, PLAIN_SCAN_OPS)
     params = kern_model.init_params(torch.Generator(dev).manual_seed(seed),
                                     dev)
+    if cfg.family == "hybrid":
+        perturb_ssm(params, seed + 1)
     tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
                            generator=torch.Generator(dev).manual_seed(seed))
     plan = decode_cache_plan(cfg, S)
-    diff = top = 0.0
-    agree = total = 0
-    with torch.inference_mode():
-        lk, ck = kern_model.prefill_fn(params, {"tokens": tokens},
-                                       plan.length, plan.ring)
-        lp, cp = plain_model.prefill_fn(params, {"tokens": tokens},
-                                        plan.length, plan.ring)
-        for i in range(steps + 1):
-            if not bool(torch.isfinite(lk).all()):
-                raise AssertionError(f"non-finite logits at step {i}")
-            if lk.shape != (B, cfg.vocab_size):
-                raise AssertionError(f"logits shape {tuple(lk.shape)}")
-            diff = max(diff, max_err(lk, lp))
-            top = max(top, float(lp.float().abs().max()))
-            tk, tp = torch.argmax(lk, -1), torch.argmax(lp, -1)
-            agree += int((tk == tp).sum())
-            total += B
-            if i == steps:
-                break
-            tok = tk[:, None].to(torch.int32)   # both fed the same token
-            lk, ck = kern_model.decode_fn(params, ck, tok, S + i, plan.ring)
-            lp, cp = plain_model.decode_fn(params, cp, tok, S + i, plan.ring)
+    out = {}
+    if cfg.family == "hybrid":
+        with torch.inference_mode():
+            out["max_abs_x_per_layer"] = layer_max_abs(
+                transformer, lambda: kern_model.prefill_fn(
+                    params, {"tokens": tokens}, plan.length, plan.ring))
+    lk, fed = trajectory(kern_model, params, tokens, plan, steps)
+    if not bool(torch.isfinite(lk).all()):
+        raise AssertionError("non-finite logits")
+    if lk.shape != (steps + 1, B, cfg.vocab_size):
+        raise AssertionError(f"logits shape {tuple(lk.shape)}")
+    lp, _ = trajectory(plain_model, params, tokens, plan, steps, fed)
+    top = float(lp.abs().max())
+    out.update(max_logit_diff=max_err(lk, lp), max_abs_logit=top,
+               rel=max_err(lk, lp) / max(top, 1e-30),
+               greedy_agree=float((lk.argmax(-1) == lp.argmax(-1))
+                                  .float().mean()))
+    if f32_truth:
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    param_dtype="float32")
+        p32 = tree_map(lambda t: t.float(), params)
+        del params
+        tk, _ = trajectory(build_model(cfg32), p32, tokens, plan, steps, fed)
+        tp, _ = trajectory(build_model(cfg32, PLAIN_OPS, PLAIN_SCAN_OPS),
+                           p32, tokens, plan, steps, fed)
+        ttop = max(float(tp.abs().max()), 1e-30)
+        out.update(f32_max_logit_diff=max_err(tk, tp),
+                   kernels_bf16_to_f32=max_err(lk, tp) / ttop,
+                   plain_bf16_to_f32=max_err(lp, tp) / ttop)
     torch.cuda.synchronize()
-    del params
-    return diff, top, agree / total
+    return out
 
 
 # --- phase 5: serving -----------------------------------------------------------
@@ -467,6 +632,7 @@ def bursts(prefix):
 
 BURSTS = bursts("qwen")
 XLSTM_BURSTS = bursts("xlstm")
+HYMBA_BURSTS = bursts("hymba")
 GEMM_NAME = re.compile(r"gemm|nvjet|cutlass|xmma|cublas", re.I)
 
 
@@ -547,27 +713,37 @@ def ptxas_summary(name: str) -> dict:
 
 def model_phase(cfg, dev, name):
     """The full-width bf16 model (kernels against plain, relative logit
-    limit) and its reduced f32 configs (absolute limit, greedy tokens all
-    equal)."""
+    limit; a hybrid model as HYBRID_MODEL_CHECK says) and its reduced f32
+    configs (absolute limit, greedy tokens all equal)."""
     t0 = time.monotonic()
-    diff, top, agree = run_model(cfg, dev, SERVE_BATCH, SERVE_SEQ, 4, seed=0)
+    hybrid = cfg.family == "hybrid"
+    r = run_model(cfg, dev, SERVE_BATCH, SERVE_SEQ, 4, seed=0,
+                  f32_truth=hybrid)
     emit(phase="model", config=f"{name} full width bf16",
          n_layers=cfg.n_layers, B=SERVE_BATCH, S=SERVE_SEQ, decode_steps=4,
-         max_logit_diff=diff, max_abs_logit=top, rel=diff / max(top, 1e-30),
-         rel_tol=BF16_MODEL_REL_TOL, greedy_agree=agree,
-         seconds=time.monotonic() - t0)
-    if diff / max(top, 1e-30) >= BF16_MODEL_REL_TOL:
+         rel_tol=BF16_MODEL_REL_TOL, seconds=time.monotonic() - t0, **r)
+    if hybrid:
+        excess = r["kernels_bf16_to_f32"] - r["plain_bf16_to_f32"]
+        if r["f32_max_logit_diff"] >= F32_MODEL_TOL \
+                or excess >= BF16_MODEL_REL_TOL:
+            raise AssertionError(f"full-width {name}: {r}")
+    elif r["rel"] >= BF16_MODEL_REL_TOL:
         raise AssertionError(f"full-width {name}: kernels vs plain logits "
-                             f"differ by {diff} (max |logit| {top})")
-    variants = ([False, True] if cfg.family == "dense" else [None])
-    for kv_quant in variants:
+                             f"differ by {r['max_logit_diff']} (max |logit| "
+                             f"{r['max_abs_logit']})")
+    kv_cache = cfg.family in ("dense", "hybrid")
+    # hymba's reduced window is 64: at S = 96 its prefill masks by the
+    # window and its decode wraps the ring
+    S_small = 96 if hybrid else 64
+    for kv_quant in ([False, True] if kv_cache else [None]):
         small = cfg.reduced()
         label = f"{name} reduced f32"
         if kv_quant is not None:
             small = dataclasses.replace(small, kv_quant=kv_quant)
             label += f" kv_quant={kv_quant}"
-        diff, top, agree = run_model(small, dev, 2, 64, 4, seed=1)
-        emit(phase="model", config=label, max_logit_diff=diff,
+        r = run_model(small, dev, 2, S_small, 4, seed=1)
+        diff, agree = r["max_logit_diff"], r["greedy_agree"]
+        emit(phase="model", config=label, S=S_small, max_logit_diff=diff,
              tol=F32_MODEL_TOL, greedy_agree=agree)
         if diff >= F32_MODEL_TOL or agree != 1.0:
             raise AssertionError(f"{label}: logit diff {diff}, agree "
@@ -624,8 +800,9 @@ def main() -> int:
     from repro_torch.kernels.decode_attention import ops as dec
     from repro_torch.kernels.flash_attention import ops as fl
     from repro_torch.kernels.mlstm_scan import ops as k4
+    from repro_torch.kernels.ssm_scan import ops as k5
     from repro_torch.models import attention as attn
-    from repro_torch.models import xlstm
+    from repro_torch.models import ssm, transformer, xlstm
     from repro_torch.runtime.device import TorchEndpoint
 
     t_start = time.monotonic()
@@ -646,12 +823,23 @@ def main() -> int:
     cfg = get_config("qwen3-1.7b")   # bf16, full width
     xcfg = dataclasses.replace(get_config("xlstm-350m"),
                                n_layers=XLSTM_LAYERS)   # bf16, full width
+    hcfg = get_config("hymba-1.5b")  # bf16, full width, all 32 layers
     k1 = check_flash(fl, cfg, dev)
     k23 = check_decode(dec, attn, cfg, dev)
     k4m = check_mlstm(k4, xcfg, dev)
+    k5m = check_ssm(k5, hcfg, dev)
+    # hymba's attention: prefill under its 1024 window, decode on its
+    # 1024-slot ring after the 16 serving steps (pos 1024 + 15)
+    window = hcfg.sliding_window
+    check_flash(fl, hcfg, dev, [(SERVE_BATCH, SERVE_SEQ, window)],
+                model="hymba-1.5b")
+    check_decode(dec, attn, hcfg, dev,
+                 [("ring", SERVE_SEQ + DECODE_STEPS - 1, True, window)],
+                 quant=False, model="hymba-1.5b")
 
     model_phase(cfg, dev, "qwen3-1.7b")
     model_phase(xcfg, dev, "xlstm-350m")
+    model_phase(hcfg, dev, "hymba-1.5b")
 
     # -- the main path: serving, through the kernels -------------------------
     t0 = time.monotonic()
@@ -712,6 +900,47 @@ def main() -> int:
          **profile_request(xeps["xlstm-0"], {
              "slstm": (xlstm, "slstm_apply"),
              "mlstm": (xlstm, "mlstm_apply")}))
+    del xeps, xres
+    torch.cuda.empty_cache()
+
+    # -- the hymba path: serving, through K1 (window), K2 (ring) and K5 -------
+    t0 = time.monotonic()
+    heps = endpoints(TorchEndpoint, hcfg, "hymba", dev, range(3))
+    h_weight_bytes = heps["hymba-0"].weight_bytes
+    emit(phase="endpoints", model="hymba-1.5b", n=3,
+         weight_bytes=h_weight_bytes, cache_plan=str(heps["hymba-0"].plan),
+         seconds=time.monotonic() - t0)
+    h_wrappers = {"K1": fl.flash_attention, "K2": dec.decode_attention,
+                  "K3": dec.decode_attention_quant, "K5": k5.ssm_scan}
+    for w in h_wrappers.values():
+        w.launches = 0
+    t0 = time.monotonic()
+    hres = serve(heps, HYMBA_BURSTS, 2 * h_weight_bytes)
+    t_h = time.monotonic() - t0
+    h_launches = {k: w.launches for k, w in h_wrappers.items()}
+    launches["K5"] = h_launches["K5"]
+    n_hreq = sum(len(b) for b in HYMBA_BURSTS)
+    # per layer: one K1 and one K5 launch for the prefill, one K2 and one
+    # K5 launch for each decode step; each endpoint's compile() runs a
+    # prefill and one step
+    L, n_warm = hcfg.n_layers, len(heps)
+    expected = {"K1": L * (n_hreq + n_warm),
+                "K2": L * (DECODE_STEPS * n_hreq + n_warm),
+                "K3": 0,
+                "K5": L * (1 + DECODE_STEPS) * n_hreq + L * 2 * n_warm}
+    emit(phase="serve", model="hymba-1.5b",
+         **serve_summary(hres, heps, t_h, n_hreq), launches=h_launches,
+         expected_launches=expected)
+    check_served(hres, n_hreq, {k: h_launches[k] for k in ("K1", "K2",
+                                                           "K5")})
+    if h_launches != expected:
+        raise AssertionError(f"hymba launches {h_launches}, expected "
+                             f"{expected}")
+
+    emit(phase="profile", endpoint="hymba-0", profiler_on=True,
+         **profile_request(heps["hymba-0"], {
+             "ssm": (ssm, "ssm_apply_seq"),
+             "attention": (transformer, "_attn_branch")}))
 
     rows = [("K1", "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:95", k1),
@@ -722,7 +951,9 @@ def main() -> int:
              "src/repro_torch/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention/kernel.py:207", k23["K3"]),
             ("K4", "mlstm_scan", "src/repro_torch/csrc/mlstm_scan.cu",
-             "src/repro/kernels/mlstm_scan/kernel.py:87", k4m)]
+             "src/repro/kernels/mlstm_scan/kernel.py:87", k4m),
+            ("K5", "ssm_scan", "src/repro_torch/csrc/ssm_scan.cu",
+             "src/repro/kernels/ssm_scan/kernel.py:72", k5m)]
     print(json.dumps({"kernels": [
         dict(name=f"{k} {name}", route="cuda", source=src_,
              replaces=rep, launches=launches[k], **m)

@@ -1,8 +1,8 @@
 """Architecture config registry: ``get_config(arch_id)`` / ``--arch`` ids.
 
-The port serves the dense transformer and xLSTM so far. The other archs
-of ``repro.configs`` are known here by name and raise, naming the
-ROADMAP.md item (section 1, "Modules to port") that ports each one.
+The port serves the dense transformer, Hymba and xLSTM so far. The
+other archs of ``repro.configs`` are known here by name and raise, naming
+the ROADMAP.md item (section 1, "Modules to port") that ports each one.
 """
 from __future__ import annotations
 
@@ -14,10 +14,10 @@ from repro_torch.configs.base import ModelConfig
 _MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "xlstm-350m": "xlstm_350m",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 _NOT_PORTED = {
-    "hymba-1.5b": "item 7 (hybrid SSM, slice 3)",
     "qwen3-moe-30b-a3b": "item 8 (MoE)",
     "granite-moe-3b-a800m": "item 8 (MoE)",
     "whisper-large-v3": "item 9 (Whisper)",

@@ -1,0 +1,1 @@
+from repro_torch.kernels.ssm_scan.ops import ssm_scan, ssm_scan_plain

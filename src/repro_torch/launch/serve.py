@@ -4,7 +4,8 @@ behind the port's MQFQ-Sticky wall-clock control plane (port of
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --mode real \
-      --archs qwen3-1.7b,xlstm-350m --requests 20 [--kv-quant] [--device cpu]
+      --archs qwen3-1.7b,xlstm-350m,hymba-1.5b --requests 20 \
+      [--kv-quant] [--device cpu]
 
 The simulator mode (``--mode sim``) is not ported yet (ROADMAP.md
 section 1, item 14).
@@ -69,7 +70,8 @@ def main(argv=None) -> None:
     ap.add_argument("--alpha", type=float, default=2.0)
     ap.add_argument("--d", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--archs", default="qwen3-1.7b,xlstm-350m")
+    ap.add_argument("--archs",
+                    default="qwen3-1.7b,xlstm-350m,hymba-1.5b")
     ap.add_argument("--requests", type=int, default=20)
     ap.add_argument("--think-time", type=float, default=0.05)
     ap.add_argument("--kv-quant", action="store_true",

@@ -5,9 +5,11 @@
   - ``prefill_fn(params, batch)``                (prompt -> cache)
   - ``decode_fn(params, cache, tokens, pos)``    (serve_step)
   - cache/batch shape planning per input shape
-The dense family and xLSTM (``family == "ssm"``, whose cache is its
-recurrent state) are ported; the others raise ``NotImplementedError``
-naming their ROADMAP.md item.
+The dense family, the hybrid family (Hymba: attention and SSM heads in
+each block, whose cache adds the SSM and conv states to the ring kv
+cache) and xLSTM (``family == "ssm"``, whose cache is its recurrent state)
+are ported; the others raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ def decode_cache_plan(cfg: ModelConfig, seq_len: int) -> CachePlan:
 class Model:
     cfg: ModelConfig
     param_table: Any
-    ops: transformer.AttentionOps = transformer.KERNEL_OPS
+    ops: transformer.BlockOps = transformer.KERNEL_OPS
     scan_ops: xlstm.ScanOps = xlstm.KERNEL_SCAN_OPS
 
     @property
@@ -113,12 +115,12 @@ class Model:
 
 
 def build_model(cfg: ModelConfig,
-                ops: transformer.AttentionOps = transformer.KERNEL_OPS,
+                ops: transformer.BlockOps = transformer.KERNEL_OPS,
                 scan_ops: xlstm.ScanOps = xlstm.KERNEL_SCAN_OPS) -> Model:
-    """A dense-family or xLSTM model; ``ops`` picks the attention
-    implementation (``transformer.KERNEL_OPS`` or ``PLAIN_OPS``) and
-    ``scan_ops`` the mLSTM scan's (``xlstm.KERNEL_SCAN_OPS`` or
-    ``PLAIN_SCAN_OPS``)."""
+    """A dense-family, hybrid or xLSTM model; ``ops`` picks the
+    transformer block's kernels, attention and the hybrid block's SSM scan
+    (``transformer.KERNEL_OPS`` or ``PLAIN_OPS``), and ``scan_ops`` the
+    mLSTM scan's (``xlstm.KERNEL_SCAN_OPS`` or ``PLAIN_SCAN_OPS``)."""
     if cfg.family == "ssm":
         return Model(cfg, xlstm_stack.param_table(cfg), ops, scan_ops)
     return Model(cfg, transformer.decoder_param_table(cfg), ops, scan_ops)

@@ -1,21 +1,23 @@
-"""Decoder-only transformer stack, dense branch (port of
-``repro.models.transformer``).
+"""Decoder-only transformer stack, dense and hybrid (attention + SSM)
+branches (port of ``repro.models.transformer``).
 
 Layers are stacked on a leading L dim, as in the reference; a Python loop
 over the L slices takes the place of ``jax.lax.scan``. Modes:
   - prefill: full sequence, returns the KV cache (full or ring)
   - decode:  one token against the cache (serve_step)
 
-Attention runs through an ``AttentionOps``: ``KERNEL_OPS`` (the default)
-sends prefill to the flash-attention kernel (K1) and decode to the decode
-kernels (K2, or K3 under ``kv_quant``), whose wrappers run their plain
-versions on a CPU tensor; ``PLAIN_OPS`` runs the plain versions on any
-device, as the yardstick the kernels are held against.
+A block's kernels come from a ``BlockOps``: ``KERNEL_OPS`` (the default)
+sends prefill attention to the flash-attention kernel (K1), decode
+attention to the decode kernels (K2, or K3 under ``kv_quant``) and the
+hybrid block's SSM recurrence to the SSM scan kernel (K5), whose wrappers
+run their plain versions on a CPU tensor; ``PLAIN_OPS`` runs the plain
+versions on any device, as the yardstick the kernels are held against.
 
 Unlike the reference's functional updates, prefill fills a fresh cache in
 place and ``decode_step`` writes the new entry into the cache it is given
 and returns that same cache: the serve loop never reuses an old cache,
-and in-place writes save a copy of the whole cache per step.
+and in-place writes save a copy of the whole cache per step. The hybrid
+block copies its new SSM and conv states into the cache the same way.
 """
 from __future__ import annotations
 
@@ -28,42 +30,43 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.ssm_scan import ops as ssm_scan_ops
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamDef, rms_norm, rope
 
 
 @dataclass(frozen=True)
-class AttentionOps:
+class BlockOps:
     prefill: Callable      # (q, k, v, *, causal, window) -> out
     decode: Callable       # (q, ck, cv, pos, *, window, ring) -> out
     decode_quant: Callable  # (q, ck, cks, cv, cvs, pos, *, window, ring)
+    ssm_scan: Callable     # (x, dt, a_log, b, c, d_skip, state) -> (y, st)
 
 
-KERNEL_OPS = AttentionOps(flash_ops.flash_attention,
-                          decode_ops.decode_attention,
-                          decode_ops.decode_attention_quant)
-PLAIN_OPS = AttentionOps(flash_ops.flash_attention_plain,
-                         decode_ops.decode_attention_plain,
-                         decode_ops.decode_attention_quant_plain)
+KERNEL_OPS = BlockOps(flash_ops.flash_attention,
+                      decode_ops.decode_attention,
+                      decode_ops.decode_attention_quant,
+                      ssm_scan_ops.ssm_scan)
+PLAIN_OPS = BlockOps(flash_ops.flash_attention_plain,
+                     decode_ops.decode_attention_plain,
+                     decode_ops.decode_attention_quant_plain,
+                     ssm_scan_ops.ssm_scan_plain)
 
 
-def _dense_only(cfg: ModelConfig) -> None:
+def _ported_only(cfg: ModelConfig) -> None:
     if cfg.is_moe:
         raise NotImplementedError(
             "MoE blocks are not ported to repro_torch yet: ROADMAP.md "
             "item 8")
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "hybrid (attention + SSM) blocks are not ported to repro_torch "
-            "yet: ROADMAP.md item 7")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet: "
             f"see ROADMAP.md section 1")
 
 
 def decoder_param_table(cfg: ModelConfig) -> Dict:
-    _dense_only(cfg)
+    _ported_only(cfg)
     d, dh = cfg.d_model, cfg.head_dim
     H, KV, L = cfg.n_heads, cfg.n_kv_heads, cfg.n_layers
     layers: Dict[str, ParamDef] = {
@@ -84,6 +87,10 @@ def decoder_param_table(cfg: ModelConfig) -> Dict:
     layers["w1"] = ParamDef((L, d, cfg.d_ff), (None, None, "model"))
     layers["w3"] = ParamDef((L, d, cfg.d_ff), (None, None, "model"))
     layers["w2"] = ParamDef((L, cfg.d_ff, d), (None, "model", None))
+    if cfg.family == "hybrid":
+        layers.update(ssm_mod.ssm_param_table(cfg, L))
+        layers["attn_out_norm"] = ParamDef((L, d), (None, None), init="ones")
+        layers["ssm_out_norm"] = ParamDef((L, d), (None, None), init="ones")
     table = {
         "emb": ParamDef((cfg.vocab_size, d), ("model", None)),
         "layers": layers,
@@ -122,7 +129,7 @@ def _mlp(cfg: ModelConfig, p, x):
 
 
 def _attn_branch(cfg: ModelConfig, p, xn, layer_cache, pos, mode,
-                 ring: bool, ops: AttentionOps):
+                 ring: bool, ops: BlockOps):
     B, S, _ = xn.shape
     window = cfg.sliding_window
     if mode == "prefill":
@@ -179,10 +186,22 @@ def _attn_branch(cfg: ModelConfig, p, xn, layer_cache, pos, mode,
 
 
 def block_apply(cfg: ModelConfig, p, x, layer_cache, pos, mode,
-                ring: bool, ops: AttentionOps = KERNEL_OPS):
-    """One decoder block; writes its kv entries into ``layer_cache``."""
+                ring: bool, ops: BlockOps = KERNEL_OPS):
+    """One decoder block; writes its kv entries (and a hybrid block's SSM
+    and conv states) into ``layer_cache``."""
     xn = rms_norm(x, p["ln1"])
-    x = x + _attn_branch(cfg, p, xn, layer_cache, pos, mode, ring, ops)
+    attn_out = _attn_branch(cfg, p, xn, layer_cache, pos, mode, ring, ops)
+    if cfg.family == "hybrid":
+        # the SSM heads read the same normed input as attention
+        ssm_out, ssm_state, conv_state = ssm_mod.ssm_apply_seq(
+            cfg, p, xn, layer_cache["ssm_state"], layer_cache["conv_state"],
+            ops.ssm_scan)
+        layer_cache["ssm_state"].copy_(ssm_state)
+        layer_cache["conv_state"].copy_(conv_state)
+        x = x + 0.5 * (rms_norm(attn_out, p["attn_out_norm"])
+                       + rms_norm(ssm_out, p["ssm_out_norm"]))
+    else:
+        x = x + attn_out
     xn2 = rms_norm(x, p["ln2"])
     return x + _mlp(cfg, p, xn2)
 
@@ -192,7 +211,7 @@ def block_apply(cfg: ModelConfig, p, x, layer_cache, pos, mode,
 def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int,
                  ring: bool) -> Dict:
     """Shapes/dtypes of the serve cache (leading dim L on every leaf)."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     L, KV, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     dt = torch.int8 if cfg.kv_quant else cfg.compute_dtype
     shapes = {
@@ -202,6 +221,10 @@ def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int,
     if cfg.kv_quant:
         shapes["k_scale"] = ((L, batch, cache_len, KV), torch.float32)
         shapes["v_scale"] = ((L, batch, cache_len, KV), torch.float32)
+    if cfg.family == "hybrid":
+        st = ssm_mod.ssm_state_shapes(cfg, batch)
+        for name, (s, d) in st.items():
+            shapes[name] = ((L,) + s, d)
     return shapes
 
 
@@ -231,9 +254,9 @@ def _unembed(cfg: ModelConfig, params, x):
 
 def prefill(cfg: ModelConfig, params, tokens,
             cache_len: Optional[int] = None, ring: bool = False,
-            ops: AttentionOps = KERNEL_OPS):
+            ops: BlockOps = KERNEL_OPS):
     """Run the prompt, return (last-position logits, serve cache)."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     x = _embed(cfg, params, tokens)
     B, S, _ = x.shape
     cache_len = cache_len or S
@@ -246,10 +269,10 @@ def prefill(cfg: ModelConfig, params, tokens,
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int,
-                ring: bool = False, ops: AttentionOps = KERNEL_OPS):
+                ring: bool = False, ops: BlockOps = KERNEL_OPS):
     """One serve step: tokens (B,1) at absolute position ``pos``. Writes
     the new kv entries into ``cache`` and returns (logits, cache)."""
-    _dense_only(cfg)
+    _ported_only(cfg)
     x = _embed(cfg, params, tokens)
     for i in range(cfg.n_layers):
         x = block_apply(cfg, _layer(params["layers"], i), x,

@@ -5,7 +5,8 @@
 warm pool) and must give identical dispatch order, start types, queue
 state transitions and evictions. (e) A wall-clock ``make_server`` over
 two reduced-qwen3 ``TorchEndpoint(device="cpu")`` drains every request
-with cold and warm starts.
+with cold and warm starts, and so do two reduced xlstm-350m and two
+reduced hymba-1.5b endpoints (hymba on its ring cache).
 """
 import heapq
 import importlib
@@ -121,7 +122,8 @@ def test_make_server_refuses_unported_paths():
         make_policy("ref-mqfq-sticky")
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "xlstm-350m"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "xlstm-350m",
+                                  "hymba-1.5b"])
 def test_wallclock_server_drains_torch_endpoints_on_cpu(arch):
     from repro_torch.configs import get_config
     from repro_torch.runtime.device import TorchEndpoint

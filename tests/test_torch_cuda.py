@@ -1,13 +1,15 @@
-"""The port's CUDA kernels K1-K4 against their plain PyTorch versions, on
+"""The port's CUDA kernels K1-K5 against their plain PyTorch versions, on
 the card. Every test here is marked ``cuda`` and skips where no CUDA card
 is present. On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: 2e-5 for float32 (summation order only), 2e-2 for bfloat16;
-for the mLSTM scan (K4, float32 only), whose state sums S steps, the
-largest |difference| in a row over the row's largest |plain value| at
-most 1e-4.
+for the mLSTM scan (K4, float32 only) and the SSM scan (K5), whose
+states sum S steps, the largest |difference| in a row over the row's
+largest |plain value| at most 1e-4 in float32; K5's bfloat16 y, rounded
+from float32 on both sides, at most 2**-6 (a rounding flip is at most
+one ulp, 2**-7 of the row's largest value).
 This file imports no JAX, so it runs where JAX is absent.
 """
 import pytest
@@ -18,6 +20,7 @@ torch.set_num_threads(1)
 from repro_torch.kernels.decode_attention import ops as dec  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fl  # noqa: E402
 from repro_torch.kernels.mlstm_scan import ops as k4  # noqa: E402
+from repro_torch.kernels.ssm_scan import ops as k5  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -44,10 +47,10 @@ def _err(a, b):
 @pytest.mark.parametrize("B,S,H,KV,dh", [
     (2, 256, 4, 2, 64), (1, 128, 4, 4, 32), (2, 192, 8, 2, 128),
     (1, 96, 3, 1, 64), (1, 64, 2, 2, 256), (1, 200, 2, 2, 64),
-    (2, 1024, 16, 8, 128),
+    (2, 1024, 16, 8, 128), (1, 300, 25, 5, 64),
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
-                                           (False, 0)])
+                                           (True, 1024), (False, 0)])
 def test_flash_kernel_vs_plain(gen, dtype, B, S, H, KV, dh, causal, window):
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn(B, S, n, dh, generator=gen, device="cuda",
@@ -71,6 +74,10 @@ DECODE_CASES = [
     (2, 64, 4, 2, 256, 0, False, 70),
     (4, 1024, 16, 8, 128, 0, False, 1039),
     (4, 1024, 16, 8, 128, 256, True, 3089),
+    # hymba-1.5b: G = 5, dh 64, its serving ring (window = ring = 1024)
+    # after 16 decode steps, and a wrapped ring under a shorter window
+    (4, 1024, 25, 5, 64, 1024, True, 1039),
+    (2, 64, 25, 5, 64, 16, True, 200),
 ]
 
 
@@ -158,3 +165,76 @@ def test_mlstm_wrapper_refuses_what_the_kernel_does_not_take(gen):
         k4.mlstm_scan(*args, tuple(t.cpu() for t in state))
     with pytest.raises(ValueError, match="head dim"):
         k4.mlstm_scan(*_scan_inputs(gen, 1, 8, 2, 48))
+
+
+def _ssm_inputs(gen, B, S, Hs, P, N, dtype, w_dtype):
+    """As ``tests/test_kernels.py::TestSsmScan``: normal x, b, c, d_skip,
+    dt = softplus(normal), a_log = 0.3 * normal (per-head A and D, so a
+    head-indexing fault shows)."""
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    return (r(B, S, Hs, P).to(dtype), torch.nn.functional.softplus(
+        r(B, S, Hs)), (r(Hs) * 0.3).to(w_dtype), r(B, S, N), r(B, S, N),
+        r(Hs).to(w_dtype))
+
+
+def _check_ssm(gen, B, S, Hs, P, N, dtype, w_dtype, with_state):
+    state = None
+    if with_state:
+        # a state the recurrence reached: the final state of a first scan
+        _, state = k5.ssm_scan_plain(*_ssm_inputs(gen, B, 64, Hs, P, N,
+                                                  dtype, w_dtype))
+    args = _ssm_inputs(gen, B, S, Hs, P, N, dtype, w_dtype)
+    before = k5.ssm_scan.launches
+    y, fin = k5.ssm_scan(*args, state)
+    ry, rfin = k5.ssm_scan_plain(*args, state)
+    torch.cuda.synchronize()
+    assert k5.ssm_scan.launches == before + 1
+    assert y.dtype == dtype and y.shape == args[0].shape
+    assert fin.dtype == torch.float32 and fin.shape == (B, Hs, P, N)
+    y_tol = 2.0 ** -6 if dtype == torch.bfloat16 else 1e-4
+    assert _row_rel(y.float(), ry.float()) <= y_tol
+    assert _row_rel(fin, rfin) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("P,N", [(16, 8), (16, 16), (32, 8), (32, 16),
+                                 (64, 8), (64, 16)])
+@pytest.mark.parametrize("S", [1, 100, 1024])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssm_kernel_vs_plain(gen, dtype, P, N, S, with_state):
+    dt = getattr(torch, dtype)
+    _check_ssm(gen, 2, S, 3, P, N, dt, dt, with_state)
+
+
+@pytest.mark.parametrize("dtype,w_dtype", [("float32", "bfloat16"),
+                                           ("bfloat16", "float32")])
+def test_ssm_kernel_mixed_weight_dtype(gen, dtype, w_dtype):
+    _check_ssm(gen, 1, 77, 5, 48, 16, getattr(torch, dtype),
+               getattr(torch, w_dtype), True)
+
+
+def test_ssm_kernel_at_hymba_serving_shape(gen):
+    """hymba-1.5b's prefill (B 4, S 1024, 25 heads of P 64, N 16), bf16."""
+    _check_ssm(gen, 4, 1024, 25, 64, 16, torch.bfloat16, torch.bfloat16,
+               True)
+
+
+def test_ssm_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    f32 = torch.float32
+    args = _ssm_inputs(gen, 1, 8, 2, 32, 16, f32, f32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        k5.ssm_scan(args[0], args[1].cpu(), *args[2:])
+    _, state = k5.ssm_scan_plain(*args)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        k5.ssm_scan(*args, state.cpu())
+    with pytest.raises(ValueError, match="state size"):
+        k5.ssm_scan(*_ssm_inputs(gen, 1, 8, 2, 32, 12, f32, f32))
+    with pytest.raises(ValueError, match="head dim"):
+        k5.ssm_scan(*_ssm_inputs(gen, 1, 8, 2, 24, 16, f32, f32))
+    with pytest.raises(ValueError, match="dtypes"):
+        k5.ssm_scan(args[0].half(), *args[1:])
+    with pytest.raises(ValueError, match="dtypes"):
+        k5.ssm_scan(args[0], args[1].bfloat16(), *args[2:])
+    x = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.ssm_scan(x, *args[1:])

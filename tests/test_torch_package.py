@@ -63,7 +63,7 @@ VERBATIM = ["runtime/invocation.py", "core/flow.py", "core/index.py",
             "faults/plan.py", "faults/inject.py", "faults/__init__.py",
             "server/events.py", "server/metrics.py", "server/control.py",
             "server/stub.py", "configs/qwen3_1_7b.py",
-            "configs/xlstm_350m.py"]
+            "configs/xlstm_350m.py", "configs/hymba_1_5b.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -101,7 +101,7 @@ def test_configs_match_reference():
     import dataclasses
     from repro.configs import get_config as ref_get
     from repro_torch.configs import ARCH_IDS, get_config
-    assert ARCH_IDS == ["qwen3-1.7b", "xlstm-350m"]
+    assert ARCH_IDS == ["qwen3-1.7b", "xlstm-350m", "hymba-1.5b"]
     for arch in ARCH_IDS:
         port, ref = get_config(arch), ref_get(arch)
         assert dataclasses.asdict(port) == dataclasses.asdict(ref), arch
@@ -110,8 +110,8 @@ def test_configs_match_reference():
         assert port.compute_dtype is torch.bfloat16
         assert port.reduced().weight_dtype is torch.float32
         assert port.n_params() == ref.n_params(), arch
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 7"):
-        get_config("hymba-1.5b")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 9"):
+        get_config("whisper-large-v3")
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
