@@ -6,7 +6,9 @@ Phases, each printing one JSON line; any failure raises and the script
 exits non-zero:
   1. device  — CUDA must be available; the card's name and power limit
                as nvidia-smi reports them.
-  2. build   — compile the CUDA kernels from ``src/repro_torch/csrc``.
+  2. build   — compile the CUDA kernels from ``src/repro_torch/csrc``;
+               each kernel's registers and spilled bytes (ptxas), and the
+               kernels that spill.
   3. kernels — K1 (flash attention), K2 (decode attention) and K3 (int8
                decode attention) on the card at the serving shapes of
                full-width qwen3-1.7b, K4 (the mLSTM scan) at those of
@@ -15,8 +17,9 @@ exits non-zero:
                from a nonzero state and for one decode step; K1 and K2
                also at hymba's heads (25 of dh 64 over 5 kv heads) with
                its window and ring cache; each held against its plain
-               PyTorch version; kernel, plain and library times, and the
-               card's bound for the same work.
+               PyTorch version; kernel, plain and library times, the
+               card's bound for the same work, bound_frac (bound / kernel
+               time) and vs_library (kernel / library time).
   4. model   — full-width qwen3-1.7b, xlstm-350m and hymba-1.5b (bf16,
                random weights from a seed): prefill + 4 decode steps
                through the kernels and through the plain versions; plus
@@ -29,8 +32,9 @@ exits non-zero:
                xlstm-350m endpoints, and three full-width hymba-1.5b
                endpoints, answer 12 requests each the same way. Each
                path's kernel launch counts are zeroed just before it and
-               read just after. One warm request of each path is
-               profiled.
+               read just after; qwen's and hymba's must equal the counts
+               computed from layers, requests and warm-ups. One warm
+               request of each path is profiled.
   6. the ``kernels`` line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
@@ -209,6 +213,14 @@ def bound_ms(n_bytes: float, n_flops: float, flops_per_s=BF16_FLOPS):
     return max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
+def timing(ms, plain_ms, library_ms, b_ms, b_by) -> dict:
+    """A kernel's times beside its bound: ``bound_frac`` = bound_ms / ms,
+    ``vs_library`` = ms / library_ms (None without a library call)."""
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=b_ms, bound_by=b_by, bound_frac=b_ms / ms,
+                vs_library=None if library_ms is None else ms / library_ms)
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -274,8 +286,7 @@ def check_flash(fl, cfg, dev, cases=FLASH_CASES, model="qwen3-1.7b"):
                      for s in sets]
             lib = device_ms(lambda q, k, v: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), tsets)
-        m = dict(**err, ms=kern, plain_ms=plain, library_ms=lib,
-                 bound_ms=b_ms, bound_by=b_by)
+        m = dict(**err, **timing(kern, plain, lib, b_ms, b_by))
         emit(phase="kernel", name="K1 flash_attention", model=model, B=B,
              S=S, H=H, KV=KV, dh=dh, window=window, host_ms=kern_host, **m)
         if main is None:
@@ -329,8 +340,7 @@ def check_decode(dec, attn, cfg, dev, cases=DECODE_CASES, quant=True,
                       v.transpose(1, 2).contiguous()) for q, k, v in sets]
             lib = device_ms(lambda q, k, v: F.scaled_dot_product_attention(
                 q, k, v, enable_gqa=True), tsets)
-        m = dict(**err, ms=kern, plain_ms=plain, library_ms=lib,
-                 bound_ms=b_ms, bound_by=b_by)
+        m = dict(**err, **timing(kern, plain, lib, b_ms, b_by))
         emit(phase="kernel", name="K2 decode_attention", model=model,
              cache=label, B=B, S=S, H=H, KV=KV, dh=dh, pos=pos,
              window=window, valid_slots=n_valid, host_ms=kern_host, **m)
@@ -359,8 +369,7 @@ def check_decode(dec, attn, cfg, dev, cases=DECODE_CASES, quant=True,
     # all S slots valid: the int8 K/V and their scales read once
     b_ms, b_by = bound_ms(nbytes(k8, ks, v8, vs) + 2 * nbytes(q),
                           4 * B * H * dh * S)
-    out["K3"] = dict(**err, ms=kern, plain_ms=plain, library_ms=None,
-                     bound_ms=b_ms, bound_by=b_by)
+    out["K3"] = dict(**err, **timing(kern, plain, None, b_ms, b_by))
     emit(phase="kernel", name="K3 decode_attention_quant", cache="full int8",
          B=B, S=S, H=H, KV=KV, dh=dh, pos=pos, host_ms=kern_host,
          **out["K3"])
@@ -411,8 +420,7 @@ def check_mlstm(k4, cfg, dev):
         # flops), n's update and n . q (5 dh); f32 on the CUDA cores
         b_ms, b_by = bound_ms(in_bytes + out_bytes,
                               B * H * S * (5 * dh * dh + 5 * dh), F32_FLOPS)
-        m = dict(**err, ms=kern, plain_ms=plain, library_ms=None,
-                 bound_ms=b_ms, bound_by=b_by)
+        m = dict(**err, **timing(kern, plain, None, b_ms, b_by))
         emit(phase="kernel", name="K4 mlstm_scan", case=label, B=B, S=S,
              H=H, dh=dh, host_ms=kern_host, plain_timing=(
                  "device_ms" if S == 1 else "host_ms"), **m)
@@ -473,8 +481,7 @@ def check_ssm(k5, cfg, dev):
         b_ms, b_by = bound_ms(in_bytes + out_bytes,
                               B * S * Hs * P * (5 * N + 3), F32_FLOPS)
         m = dict(max_abs_err=max(err_y["max_abs_err"], err_s["max_abs_err"]),
-                 ms=kern, plain_ms=plain, library_ms=None, bound_ms=b_ms,
-                 bound_by=b_by)
+                 **timing(kern, plain, None, b_ms, b_by))
         emit(phase="kernel", name="K5 ssm_scan", case=label, B=B, S=S,
              Hs=Hs, P=P, N=N, x_dtype=str(dtype).split(".")[-1],
              y_row_rel_err=err_y["max_row_rel_err"], y_row_rel_tol=y_tol,
@@ -698,8 +705,9 @@ def profile_request(ep, ranges=None):
 
 
 def ptxas_summary(name: str) -> dict:
-    """Most registers any kernel of a source uses, and its spilled bytes,
-    from the build's ``-Xptxas -v`` log."""
+    """Most registers any kernel of a source uses, its spilled bytes, and
+    each kernel's [registers, spill bytes], from the build's ``-Xptxas -v``
+    log."""
     from repro_torch.kernels import _build
     path = _build.BUILD / f"{name}.log"
     if not path.exists():       # built by an earlier run
@@ -707,8 +715,31 @@ def ptxas_summary(name: str) -> dict:
     log = path.read_text()
     regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
     spills = [int(n) for n in re.findall(r"(\d+) bytes spill", log)]
+    per = {}
+    for part in re.split(r"Compiling entry function '", log)[1:]:
+        mangled = part.split("'", 1)[0]
+        used = re.search(r"Used (\d+) registers", part)
+        spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", part))
+        per[mangled] = [int(used.group(1)) if used else None, spill]
+    names = demangle(list(per))
     return dict(max_registers=max(regs, default=None),
-                spill_bytes=sum(spills))
+                spill_bytes=sum(spills),
+                kernels={names[m]: v for m, v in per.items()})
+
+
+def demangle(mangled):
+    """Short readable kernel names ("flash_fwd_bf16<128>") by c++filt,
+    the mangled names where it is missing."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(mangled),
+                             capture_output=True, text=True, check=True,
+                             timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        return {m: m for m in mangled}
+    short = [n.split("(anonymous namespace)::")[-1].split("(")[0]
+             for n in out]
+    return dict(zip(mangled, short)) if len(short) == len(mangled) else \
+        {m: m for m in mangled}
 
 
 def model_phase(cfg, dev, name):
@@ -817,8 +848,12 @@ def main() -> int:
 
     t0 = time.monotonic()
     secs = _build.build_all()
+    ptxas = {n: ptxas_summary(n) for n in secs}
     emit(phase="build", seconds=time.monotonic() - t0, per_source=secs,
-         ptxas={n: ptxas_summary(n) for n in secs})
+         ptxas=ptxas,
+         # no kernel is expected to spill: any that does is named here
+         spilling=[k for p in ptxas.values()
+                   for k, (_, sp) in p.get("kernels", {}).items() if sp])
 
     cfg = get_config("qwen3-1.7b")   # bf16, full width
     xcfg = dataclasses.replace(get_config("xlstm-350m"),
@@ -862,12 +897,24 @@ def main() -> int:
     launches = {k: w.launches for k, w in wrappers.items()}
 
     n_req = sum(len(b) for b in BURSTS)
+    n_q8 = len(qres.invocations)
+    # per layer: one K1 launch for each prefill, one K2 (K3 on the int8
+    # endpoint) for each decode step; each endpoint's compile() runs a
+    # prefill and one step
+    L = cfg.n_layers
+    expected = {"K1": L * (n_req + n_q8 + len(eps) + len(qep)),
+                "K2": L * (DECODE_STEPS * n_req + len(eps)),
+                "K3": L * (DECODE_STEPS * n_q8 + len(qep))}
     emit(phase="serve", model="qwen3-1.7b",
          **serve_summary(res, eps, t_main, n_req),
-         kv_quant_completed=len(qres.invocations),
-         kv_quant_start_types=qres.start_type_counts(), launches=launches)
+         kv_quant_completed=n_q8,
+         kv_quant_start_types=qres.start_type_counts(), launches=launches,
+         expected_launches=expected)
     check_served(qres, 3, {}, start_types=())
     check_served(res, n_req, launches)
+    if launches != expected:
+        raise AssertionError(f"qwen launches {launches}, expected "
+                             f"{expected}")
 
     emit(phase="profile", endpoint="qwen-0", profiler_on=True,
          **profile_request(eps["qwen-0"]))

@@ -12,39 +12,69 @@
 // whole cache: 2*B*S*KV*dh cache elements (plus, for K3, 2*B*S*KV scales)
 // against 4*B*H*S*dh flops, i.e. about G/2 flops per cache byte in bf16 and
 // G flops per byte in int8 (G = H/KV query heads per kv head) -- far below
-// the ~295 flops per byte where the tensor cores would bind. Per launch
-// the host does no more than the launch itself: the kernel works out
-// each slot's position from (pos, S, ring), and the shared-memory limit
-// is raised once per kernel and device, not at every call.
+// the ~295 flops per byte where the tensor cores would bind. At serving
+// sizes the cache is 5-17 MB, about what the card must have in flight to
+// stream at its full rate, so what a kernel can do is put every byte in
+// flight at once and keep the work around the loads short. Per launch
+// the host does no more than the launch itself: the kernels work out each
+// slot's position from (pos, S, ring), and the shared-memory limit is
+// raised once per kernel and device, not at every call.
 //
-// Design. The TPU kernel walks the cache of one (batch, kv head) row in
-// one sequential pass; here B*KV is only 16-32 rows at serving sizes
-// against 132 SMs, so the cache is split across CTAs (split-K): a CTA of
-// four warps per (slot chunk, batch*kv-head row). Each warp runs its own
-// online softmax over every fourth slot of the chunk for all G query heads
-// of the kv head at once, so each cache row is read from device memory
-// once for the G heads that share it; a lane holds dh/32 contiguous
-// elements, so a warp reads one cache row in coalesced segments. The
-// kernel computes each slot's position itself (in place of Pallas'
-// scalar-prefetched slot_pos) and skips slots that are invalid for this
-// query (never written, in the future, or outside the window) without
-// reading their K/V bytes. The four warps' (m, l, acc) merge in shared memory into one
-// partial per chunk; a second small kernel merges the chunks' partials
-// and normalises. K3 dequantizes int8 with its scale in registers,
-// upcasts q to f32 and keeps p in f32 for p @ V, as the Pallas kernel
-// does; K2 rounds p to the cache type before p @ V, as its reference.
-// Masking and the final acc / max(l, 1e-30) follow the reference.
+// The TPU kernel walks the cache of one (batch, kv head) row in one
+// sequential pass; here B*KV is only 20-32 rows at serving sizes against
+// 132 SMs, so the cache is split across CTAs (split-K). Both kernels skip
+// slots that are invalid for this query (never written, in the future, or
+// outside the window) without reading their K/V bytes, and read each cache
+// row once for the G query heads that share it. Masking and the final
+// acc / max(l, 1e-30) follow the reference.
+//
+// K2, decode_cluster: one launch. A thread-block cluster of up to 8 CTAs
+// per (batch, kv head) row; each CTA takes a contiguous chunk of slots and
+// each of its warps tiles of 32 slots. A warp copies a tile's K and V rows
+// into its own shared-memory ring with 16-byte cp.async (two stages when
+// it has more than one tile, so that the next tile is in flight) before q
+// is read, and rescales its online softmax once per tile. bf16 computes a
+// tile on the tensor cores: the G query rows are the rows of a 16-row
+// mma.sync m16n8k16 tile, S = Q K^T and P.V take their operands from
+// shared memory by ldmatrix, scores and p stay in registers. f32 computes
+// it on the CUDA cores (TF32 would not hold the f32 tolerance): a lane owns
+// a slot's dot products with the G query rows, p goes through shared
+// memory to P.V, where a lane owns dh/32 output columns. Both round p to
+// the cache type for P.V and sum the f32 p into l. The warps' (m, l, acc)
+// merge in the CTA; each CTA writes its merged partial into the shared
+// memory of every CTA of the cluster (distributed shared memory), and
+// after one cluster barrier each rank merges the ranks' partials of an
+// n_ranks-th of the outputs, normalises and writes them. A warp, CTA
+// or rank with no valid slot merges as (m = -1e30, l = 0, acc = 0), which
+// adds nothing and no NaN.
+//
+// K3, decode_split + decode_combine: a CTA of four warps per (slot chunk,
+// batch*kv-head row); each warp runs its own online softmax over every
+// fourth slot of the chunk for all G query heads at once, a lane holding
+// dh/32 contiguous elements. The four warps' (m, l, acc) merge in shared
+// memory into one partial per chunk; a second small kernel merges the
+// chunks' partials and normalises. K3 dequantizes int8 with its scale in
+// registers, upcasts q to f32 and keeps p in f32 for p @ V, as the Pallas
+// kernel does.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <mutex>
+#include <type_traits>
+
+#include "sm90_helpers.cuh"
 
 namespace {
 
-constexpr int NW = 4;         // warps per CTA
-constexpr int NT = NW * 32;   // threads per CTA
+using namespace repro_sm90;
+
+namespace cg = cooperative_groups;
+
+constexpr int NW = 4;         // warps per K3 CTA
+constexpr int NT = NW * 32;   // threads per K3 CTA
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_DEVICES = 64;
 
@@ -101,13 +131,582 @@ cudaError_t allow_optin_smem() {
   return result[dev];
 }
 
+// --- K2 ---------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int TS = 32;            // cache slots per tile: one per lane
+constexpr int MAX_CLUSTER = 8;    // CTAs per cluster, the portable limit
+constexpr int MAX_GROUP = 8;      // query heads per kv head
+constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory per CTA
+constexpr float LOG2E = 1.4426950408889634f;
+
+// K2's shape per element type and head dim: bf16 runs the tile pass on the
+// tensor cores (MMA), f32 on the CUDA cores with GM = 8 query rows in
+// registers (rows past G zero; f32 is off the serving path, so one
+// instance serves every G <= 8); warps per CTA
+// (two where a tile of 32 f32 rows of dh 256 would not fit four times
+// over). Tiles keep ldmatrix's eight rows (bf16) or 32 lanes each reading
+// its own row (f32) in distinct bank groups: bf16 rows of dh >= 128 are
+// unpadded with their 16-byte chunks swizzled (chunk c of row r at
+// c ^ (r & 7)), so that 3 CTAs fit on an SM at qwen3-1.7b's shapes; other
+// rows are padded by 16 bytes, which measured faster at dh 64. Shared
+// memory, from its start: q (G bf16 rows and a zero row, or GM f32 rows),
+// the p of each warp's tile (f32 only), the cluster's gather slots (every
+// rank's G partials), then each warp's ring of n_stages tiles.
+template <typename T, int DH>
+struct K2Shape {
+  static constexpr bool MMA = std::is_same<T, bf16>::value;
+  static constexpr int GM = MAX_GROUP;
+  static constexpr int NW = DH * sizeof(T) >= 1024 ? 2 : 4;
+  static constexpr bool SWZ = MMA && DH >= 128;
+  static constexpr int RB = DH * (int)sizeof(T) + (SWZ ? 0 : 16);
+  static constexpr int STAGE = 2 * TS * RB;  // one tile's K and V
+  static constexpr int PS = DH + 2;          // a partial: acc, m, l
+  __host__ __device__ static constexpr size_t q_bytes(int G) {
+    return MMA ? (size_t)(G + 1) * RB : sizeof(float) * GM * DH;
+  }
+  __host__ __device__ static constexpr size_t p_bytes() {
+    return MMA ? 0 : sizeof(float) * NW * GM * TS;
+  }
+  __host__ __device__ static constexpr size_t head(int G) {
+    return (q_bytes(G) + p_bytes() +
+            sizeof(float) * MAX_CLUSTER * G * PS + 15) / 16 * 16;
+  }
+};
+
+// N values of T from shared memory at p (aligned to their size, up to 16
+// bytes), as floats
+template <typename T, int N>
+__device__ __forceinline__ void load_f(const unsigned char* p,
+                                       float (&out)[N]) {
+  constexpr int BYTES = N * (int)sizeof(T);
+  uint32_t w[(BYTES + 3) / 4];
+  if constexpr (BYTES >= 16) {
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[i];
+      w[4 * i] = u.x;
+      w[4 * i + 1] = u.y;
+      w[4 * i + 2] = u.z;
+      w[4 * i + 3] = u.w;
+    }
+  } else if constexpr (BYTES == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x;
+    w[1] = u.y;
+  } else if constexpr (BYTES == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    w[0] = *reinterpret_cast<const unsigned short*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if constexpr (sizeof(T) == 4)
+      out[i] = __uint_as_float(w[i]);
+    else  // bf16: element 2j is the low half of word j
+      out[i] = __uint_as_float((i & 1) ? (w[i / 2] & 0xffff0000u)
+                                       : (w[i / 2] << 16));
+  }
+}
+
+// Where chunk c of row r of a bf16 tile of CPR chunks a row lies
+template <int CPR>
+__device__ __forceinline__ int swz(int r, int c) {
+  return c ^ (r & (CPR >= 8 ? 7 : CPR - 1));
+}
+
+// A warp's pass over its tiles on the tensor cores (bf16). The G query
+// rows are the first rows of a 16-row m-tile (the rest zero); the 32
+// slots of a tile are four 8-slot n-tiles, so S = Q K^T is KD x 4 mmas and
+// P.V 2 x DH/8. Each thread holds rows g and g + 8 of every fragment. Q's
+// fragments stay in registers up to dh 128; at dh 256, beside a 128-
+// register accumulator, they are re-read from shared memory.
+template <int DH, int RB, bool SWZ>
+struct MmaPass {
+  static constexpr int KD = DH / 16, ND = DH / 8, CPR = DH / 8, PS = DH + 2;
+  static constexpr bool Q_IN_REGS = DH <= 128;
+
+  // the byte offset of chunk c of row r of a tile
+  __device__ __forceinline__ static int at(int r, int c) {
+    return r * RB + (SWZ ? swz<CPR>(r, c) : c) * 16;
+  }
+  uint32_t qf[Q_IN_REGS ? KD : 1][4];
+  uint32_t qa;  // this lane's ldmatrix address of Q's first k-step
+  float acc[ND][4];
+  float m[2], l[2];  // running max (log2 units), this thread's row sums
+
+  // q rows 0..G-1 of shared memory, row G zero: m-tile rows past G read
+  // the zero row
+  __device__ __forceinline__ void init(const unsigned char* qsm, int G,
+                                       int lane) {
+    const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int a_col = (lane >> 4) * 8;
+    qa = smem_u32(qsm + (a_row < G ? a_row : G) * RB + a_col * 2);
+    if constexpr (Q_IN_REGS) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) ldsm_x4(qf[kk], qa + kk * 32);
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    m[0] = m[1] = NEG_INF;
+    l[0] = l[1] = 0.f;
+  }
+
+  // mask: bit i set iff slot i of the tile is valid
+  __device__ __forceinline__ void tile(const unsigned char* kt,
+                                       const unsigned char* vt, unsigned mask,
+                                       float scale_log2, const unsigned char*,
+                                       float*, int lane) {
+    const int t = lane % 4;
+    const int k_row = (lane & 7) + (lane >> 4) * 8;
+    const int k_col = ((lane >> 3) & 1) * 8;
+    const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int v_col = (lane >> 4) * 8;
+    float s[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      if constexpr (Q_IN_REGS) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldsm_x4(a, qa + kk * 32);
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bb[4];
+        ldsm_x4(bb, smem_u32(kt + at(np * 16 + k_row, 2 * kk + k_col / 8)));
+        mma_bf16(s[2 * np], a, bb[0], bb[1]);
+        mma_bf16(s[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = (mask >> (8 * j + 2 * t + (e & 1))) & 1u;
+        s[j][e] = ok ? s[j][e] * scale_log2 : NEG_INF;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      const float alpha = ex2(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        acc[j][2 * r] *= alpha;
+        acc[j][2 * r + 1] *= alpha;
+      }
+    }
+    // p in f32 into l (0 for an invalid slot); rounded to bf16 into the A
+    // fragments of P.V
+    uint32_t pa[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = (mask >> (8 * j + 2 * t + (e & 1))) & 1u;
+        p[e] = ok ? ex2(s[j][e] - m[e >> 1]) : 0.f;
+      }
+      l[0] += p[0] + p[1];
+      l[1] += p[2] + p[3];
+      pa[j / 2][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[j / 2][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, smem_u32(vt + at(kk * 16 + v_row, 2 * dp + v_col / 8)));
+        mma_bf16(acc[2 * dp], pa[kk], bb[0], bb[1]);
+        mma_bf16(acc[2 * dp + 1], pa[kk], bb[2], bb[3]);
+      }
+  }
+
+  // the warp's (acc, m, l) of query rows below G into wp (G x PS)
+  __device__ __forceinline__ void flush(float* wp, int G, int lane) {
+    const int g = lane / 4, t = lane % 4;
+    float lr = l[0];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    if (g >= G) return;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      wp[g * PS + 8 * j + 2 * t] = acc[j][0];
+      wp[g * PS + 8 * j + 2 * t + 1] = acc[j][1];
+    }
+    if (t == 0) {
+      wp[g * PS + DH] = m[0];
+      wp[g * PS + DH + 1] = lr;
+    }
+  }
+};
+
+// A warp's pass over its tiles on the CUDA cores (f32). A lane owns one
+// slot for the scores (its K row against the GM query rows, read as
+// broadcasts from shared memory, four partial sums per row) and DH/32
+// output columns for P.V; one online-softmax rescale per tile.
+template <typename T, int DH, int GM>
+struct SimtPass {
+  static constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16 bytes
+  static constexpr int CPR = DH / EPC;             // 16-byte chunks per row
+  static constexpr int RB = DH * (int)sizeof(T) + 16;
+  static constexpr int E = DH / 32;                // output columns per lane
+  static constexpr int PS = DH + 2;
+  float m[GM], lsum[GM], acc[GM][E];
+
+  __device__ __forceinline__ void init(const unsigned char*, int, int) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      m[g] = NEG_INF;
+      lsum[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
+    }
+  }
+
+  __device__ __forceinline__ void tile(const unsigned char* kt,
+                                       const unsigned char* vt, unsigned mask,
+                                       float scale_log2,
+                                       const unsigned char* qsm, float* pw,
+                                       int lane) {
+    const float* qs = reinterpret_cast<const float*>(qsm);
+    const bool ok = (mask >> lane) & 1u;
+    float s[GM][4];
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) s[g][u] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < CPR; ++c) {
+      float kf[EPC];
+      load_f<T, EPC>(kt + lane * RB + c * 16, kf);
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        const float4* qv =
+            reinterpret_cast<const float4*>(qs + g * DH + c * EPC);
+#pragma unroll
+        for (int e4 = 0; e4 < EPC / 4; ++e4) {
+          const float4 qq = qv[e4];
+          s[g][0] = fmaf(qq.x, kf[4 * e4], s[g][0]);
+          s[g][1] = fmaf(qq.y, kf[4 * e4 + 1], s[g][1]);
+          s[g][2] = fmaf(qq.z, kf[4 * e4 + 2], s[g][2]);
+          s[g][3] = fmaf(qq.w, kf[4 * e4 + 3], s[g][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      const float dot = (s[g][0] + s[g][1]) + (s[g][2] + s[g][3]);
+      const float x = ok ? dot * scale_log2 : NEG_INF;
+      float mt = x;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+      const float m_new = fmaxf(m[g], mt);
+      const float alpha = exp2f(m[g] - m_new);
+      m[g] = m_new;
+      const float p = ok ? exp2f(x - m_new) : 0.f;
+      lsum[g] = lsum[g] * alpha + p;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+      pw[g * TS + lane] = to_f(from_f<T>(p));  // p in the cache type
+    }
+    __syncwarp();
+    const unsigned char* vcol = vt + lane * E * (int)sizeof(T);
+#pragma unroll 2
+    for (int j4 = 0; j4 < TS / 4; ++j4) {
+      float pp[GM][4];
+#pragma unroll
+      for (int g = 0; g < GM; ++g) {
+        const float4 p4 = reinterpret_cast<const float4*>(pw + g * TS)[j4];
+        pp[g][0] = p4.x;
+        pp[g][1] = p4.y;
+        pp[g][2] = p4.z;
+        pp[g][3] = p4.w;
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float vf[E];
+        load_f<T, E>(vcol + (4 * j4 + jj) * RB, vf);
+#pragma unroll
+        for (int g = 0; g < GM; ++g)
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            acc[g][e] = fmaf(pp[g][jj], vf[e], acc[g][e]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void flush(float* wp, int G, int lane) {
+#pragma unroll
+    for (int g = 0; g < GM; ++g) {
+      const float L = warp_sum(lsum[g]);
+      if (g >= G) continue;
+#pragma unroll
+      for (int e = 0; e < E; ++e) wp[g * PS + lane * E + e] = acc[g][e];
+      if (lane == 0) {
+        wp[g * PS + DH] = m[g];
+        wp[g * PS + DH + 1] = L;
+      }
+    }
+  }
+};
+
+// One cluster of gridDim.x CTAs per batch*kv-head row (blockIdx.y); CTA
+// rank r takes slots [r * chunk, (r + 1) * chunk). n_stages: 2 if a warp
+// has more than one tile and two fit, else 1.
+template <typename T, int DH>
+__global__ void __launch_bounds__(K2Shape<T, DH>::NW * 32)
+    decode_cluster(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, T* __restrict__ o, int S, int H,
+                   int KV, int pos, int window, int ring, int chunk,
+                   int n_stages, float scale_log2) {
+  using SH = K2Shape<T, DH>;
+  constexpr int NW_ = SH::NW, NTH = NW_ * 32, RB = SH::RB, PS = SH::PS;
+  constexpr int GM = SH::GM;
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16 bytes
+  constexpr int CPR = DH / EPC;             // 16-byte chunks of a row's data
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = H / KV;
+  unsigned char* qsm = smem;
+  float* ps = reinterpret_cast<float*>(smem + SH::q_bytes(G));
+  float* gather =
+      reinterpret_cast<float*>(smem + SH::q_bytes(G) + SH::p_bytes());
+  unsigned char* ring_tiles = smem + SH::head(G);
+
+  // every CTA of the cluster has started before any writes into another's
+  // shared memory: arrive now, wait before the first remote write
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n_ranks = (int)cluster.num_blocks();
+  const int bkv = blockIdx.y, b = bkv / KV, kvh = bkv % KV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  const int s0 = rank * chunk, s1 = min(S, s0 + chunk);
+  const int n_tiles = s1 > s0 ? (s1 - s0 + TS - 1) / TS : 0;
+  const int my_tiles = n_tiles > warp ? (n_tiles - warp + NW_ - 1) / NW_ : 0;
+  unsigned char* wring = ring_tiles + (size_t)warp * n_stages * SH::STAGE;
+  const size_t slot_stride = (size_t)KV * DH;
+  const T* krow0 = k + ((size_t)b * S * KV + kvh) * DH;
+  const T* vrow0 = v + ((size_t)b * S * KV + kvh) * DH;
+
+  // the first slot of this warp's i-th tile; whether slot s is valid
+  auto tile_slot = [&](int i) { return s0 + (warp + i * NW_) * TS; };
+  auto valid = [&](int s) {
+    if (s >= s1) return false;
+    const int sp = slot_position(s, S, pos, ring != 0);
+    return sp >= 0 && sp <= pos && !(window > 0 && sp <= pos - window);
+  };
+  auto fetch = [&](int i, int stage) {
+    const int first = tile_slot(i);
+    const unsigned mask = __ballot_sync(0xffffffffu, valid(first + lane));
+    if (mask == 0) return;  // no valid slot: nothing read
+    unsigned char* kt = wring + stage * SH::STAGE;
+    unsigned char* vt = kt + TS * RB;
+    for (int c = lane; c < TS * CPR; c += 32) {
+      const int r = c / CPR, cc = c % CPR;
+      const bool ok = (mask >> r) & 1u;
+      const size_t off = (size_t)(ok ? first + r : 0) * slot_stride + cc * EPC;
+      const int pc = SH::SWZ ? swz<CPR>(r, cc) : cc;
+      cp_async16(smem_u32(kt + r * RB + pc * 16), krow0 + off, ok);
+      cp_async16(smem_u32(vt + r * RB + pc * 16), vrow0 + off, ok);
+    }
+  };
+
+  // q, then the cache's first tiles, go in flight at once: q in group 0
+  // (G bf16 rows at stride RB and a zero row, or G f32 rows and zero rows
+  // up to GM; zero rows are zero-filled without a read)
+  {
+    constexpr int QROW = SH::MMA ? RB : DH * (int)sizeof(float);
+    const int q_rows = SH::MMA ? G + 1 : GM;
+    const T* qrow0 = q + ((size_t)b * H + (size_t)kvh * G) * DH;
+    for (int i = threadIdx.x; i < q_rows * CPR; i += NTH) {
+      const int r = i / CPR, c = i % CPR;
+      cp_async16(smem_u32(qsm + r * QROW + c * 16),
+                 qrow0 + (r < G ? r * DH + c * EPC : 0), r < G);
+    }
+    cp_async_commit();
+  }
+  for (int j = 0; j < n_stages; ++j) {
+    if (j < my_tiles) fetch(j, j);
+    cp_async_commit();
+  }
+  if (n_stages == 2)
+    cp_async_wait<2>();  // q has landed
+  else
+    cp_async_wait<1>();
+  __syncthreads();
+
+  std::conditional_t<SH::MMA, MmaPass<DH, RB, SH::SWZ>,
+                     SimtPass<T, DH, GM>>
+      pass;
+  pass.init(qsm, G, lane);
+  float* pw = ps + warp * GM * TS;
+  for (int i = 0; i < my_tiles; ++i) {
+    const int stage = n_stages == 1 ? 0 : (i & 1);
+    if (n_stages == 2)
+      cp_async_wait<1>();  // tile i has landed, tile i + 1 may not have
+    else
+      cp_async_wait<0>();
+    __syncwarp();
+    const unsigned mask =
+        __ballot_sync(0xffffffffu, valid(tile_slot(i) + lane));
+    if (mask != 0) {
+      const unsigned char* kt = wring + stage * SH::STAGE;
+      pass.tile(kt, kt + TS * RB, mask, scale_log2, qsm, pw, lane);
+    }
+    __syncwarp();  // the warp is done with this stage (and pw)
+    if (i + n_stages < my_tiles) fetch(i + n_stages, stage);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // the warp's partial into its own ring, then the CTA's partial into
+  // gather slot `rank` of every rank of the cluster
+  pass.flush(reinterpret_cast<float*>(wring), G, lane);
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  for (int i = threadIdx.x; i < G * DH; i += NTH) {
+    const int g = i / DH, d = i % DH;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NW_; ++w)
+      M = fmaxf(M, reinterpret_cast<const float*>(
+                       ring_tiles + (size_t)w * n_stages * SH::STAGE)[g * PS + DH]);
+    float a = 0.f, L = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW_; ++w) {
+      const float* src = reinterpret_cast<const float*>(
+                             ring_tiles + (size_t)w * n_stages * SH::STAGE) +
+                         g * PS;
+      const float sc = exp2f(src[DH] - M);
+      a += src[d] * sc;
+      L += src[DH + 1] * sc;
+    }
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r) {
+      if (r < n_ranks) {
+        float* dst =
+            cluster.map_shared_rank(gather, r) + (size_t)(rank * G + g) * PS;
+        dst[d] = a;
+        if (d == 0) {
+          dst[DH] = M;
+          dst[DH + 1] = L;
+        }
+      }
+    }
+  }
+
+  // each rank merges the ranks' partials of its share of the G x DH
+  // outputs from its own shared memory, normalises and writes them
+  cluster.sync();
+  const int per = (G * DH + n_ranks - 1) / n_ranks;
+  const int i_end = min(G * DH, (rank + 1) * per);
+  for (int i = rank * per + threadIdx.x; i < i_end; i += NTH) {
+    const int g = i / DH, d = i % DH;
+    float M = NEG_INF;
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r)
+      if (r < n_ranks) M = fmaxf(M, gather[(r * G + g) * PS + DH]);
+    float a = 0.f, L = 0.f;
+#pragma unroll
+    for (int r = 0; r < MAX_CLUSTER; ++r) {
+      if (r < n_ranks) {
+        const float* src = gather + (r * G + g) * PS;
+        const float sc = exp2f(src[DH] - M);
+        a += src[d] * sc;
+        L += src[DH + 1] * sc;
+      }
+    }
+    o[((size_t)b * H + (size_t)kvh * G + g) * DH + d] =
+        from_f<T>(a / fmaxf(L, 1e-30f));
+  }
+}
+
+template <typename T, int DH>
+cudaError_t launch_k2(const void* q, const void* k, const void* v, void* o,
+                      int B, int S, int H, int KV, int pos, int window,
+                      int ring, int n_ctas, int chunk, float scale,
+                      cudaStream_t stream) {
+  using SH = K2Shape<T, DH>;
+  if (n_ctas < 1 || n_ctas > MAX_CLUSTER || chunk < 1 ||
+      (long)n_ctas * chunk < S)
+    return cudaErrorInvalidValue;
+  const int tiles = (chunk + TS - 1) / TS;
+  const auto smem_for = [G = H / KV](int stages) {
+    return SH::head(G) + (size_t)SH::NW * stages * SH::STAGE;
+  };
+  const int n_stages = tiles > SH::NW && smem_for(2) <= SMEM_LIMIT ? 2 : 1;
+  cudaError_t err = allow_optin_smem<decode_cluster<T, DH>>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_ctas, B * KV);
+  cfg.blockDim = dim3(SH::NW * 32);
+  cfg.dynamicSmemBytes = smem_for(n_stages);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, decode_cluster<T, DH>,
+                           static_cast<const T*>(q), static_cast<const T*>(k),
+                           static_cast<const T*>(v), static_cast<T*>(o), S, H,
+                           KV, pos, window, ring, chunk, n_stages,
+                           scale * LOG2E);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_k2_dh(int dh, const void* q, const void* k, const void* v,
+                         void* o, int B, int S, int H, int KV, int pos,
+                         int window, int ring, int n_ctas, int chunk,
+                         float scale, cudaStream_t stream) {
+  if (H / KV > MAX_GROUP) return cudaErrorInvalidValue;
+#define K2_CASE(D)                                                        \
+  case D:                                                                 \
+    return launch_k2<T, D>(q, k, v, o, B, S, H, KV, pos, window, ring,    \
+                           n_ctas, chunk, scale, stream);
+  switch (dh) {
+    K2_CASE(32)
+    K2_CASE(64)
+    K2_CASE(128)
+    K2_CASE(256)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef K2_CASE
+}
+
+// --- K3 ---------------------------------------------------------------------
+
 size_t split_smem_bytes(int G, int dh) {
   return sizeof(float) *
          ((size_t)G * dh + (size_t)NW * G * dh + 2 * (size_t)NW * G);
 }
 
 // One CTA per (chunk of slots, batch*kv-head row). T is the type of q and
-// of the output; C is the cache element type (T for K2, int8 for K3).
+// of the output; C is the cache element type (int8 for K3).
 template <typename T, typename C, int DH, bool Q8>
 __global__ void __launch_bounds__(NT)
     decode_split(const T* __restrict__ q, const C* __restrict__ k,
@@ -275,26 +874,23 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* ks,
 
 }  // namespace
 
-// K2. q (B, 1, H, dh); k/v (B, S, KV, dh) of q's type; o (B, 1, H, dh);
-// o_part (B*KV, n_splits, G, dh) f32 and ml_part (B*KV, n_splits, G, 2) f32
-// scratch. dtype: 0 = f32, 1 = bf16. ring: 0 = full cache, 1 = ring.
+// K2. q (B, 1, H, dh); k/v (B, S, KV, dh) of q's type, 16-byte aligned;
+// o (B, 1, H, dh). dtype: 0 = f32, 1 = bf16. ring: 0 = full cache, 1 =
+// ring. n_ctas (1-8) CTAs per batch*kv-head row, one cluster, each over
+// chunk slots (n_ctas * chunk >= S); H / KV at most 8.
 extern "C" int decode_attention_fwd(const void* q, const void* k,
-                                    const void* v, void* o, void* o_part,
-                                    void* ml_part, int dtype, int B, int S,
-                                    int H, int KV, int dh, int pos,
-                                    int window, int ring, int n_splits,
+                                    const void* v, void* o, int dtype, int B,
+                                    int S, int H, int KV, int dh, int pos,
+                                    int window, int ring, int n_ctas,
                                     int chunk, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* op = static_cast<float*>(o_part);
-  float* mlp = static_cast<float*>(ml_part);
   if (dtype == 0)
-    return launch_dh<float, float, false>(dh, q, k, nullptr, v, nullptr, o,
-                                          op, mlp, B, S, H, KV, pos, window,
-                                          ring, n_splits, chunk, scale, st);
+    return launch_k2_dh<float>(dh, q, k, v, o, B, S, H, KV, pos, window,
+                               ring, n_ctas, chunk, scale, st);
   if (dtype == 1)
-    return launch_dh<__nv_bfloat16, __nv_bfloat16, false>(
-        dh, q, k, nullptr, v, nullptr, o, op, mlp, B, S, H, KV, pos, window,
-        ring, n_splits, chunk, scale, st);
+    return launch_k2_dh<__nv_bfloat16>(dh, q, k, v, o, B, S, H, KV, pos,
+                                       window, ring, n_ctas, chunk, scale,
+                                       st);
   return cudaErrorInvalidValue;
 }
 

@@ -10,45 +10,61 @@
 // dh = 128) it has well over the ~295 flops per byte at which the bf16
 // tensor cores, not the memory, become the limit.
 //
-// Design. One CTA of 128 threads per (64-row query block, query head,
-// batch row); the query head h reads kv head h / G, which folds GQA
-// without copying K or V. A loop inside the CTA over 32-key blocks takes
-// the place of Pallas' sequential "arbitrary" grid dimension: the running
-// max m, the denominator l (shared memory) and the f32 output accumulator
-// (registers, 64 x dh spread over the block) stay on chip across key
-// blocks, so nothing of size Sq x Sk ever reaches device memory. Key
-// blocks that the causal or window mask removes for every row of the
-// query block are skipped, which changes no result. Q, K and V tiles are
-// read from the model layout (B, S, heads, dh) with strides and held in
-// shared memory as f32 with padded rows against bank conflicts; the
-// products run on plain FMAs (SIMT). This is the simple, right version:
-// it does not reach the tensor-core bound, which needs wgmma/mma tiles
-// fed by TMA (a later change). As in the reference, masked scores are
-// -1e30, p is rounded to the input type before p @ V, and the output is
-// acc / max(l, 1e-30).
+// Two kernels, chosen by the element type (a fixed dispatch, not a
+// fallback):
+//
+// bfloat16: flash_fwd_bf16, FlashAttention-2's dataflow on the tensor
+// cores. One CTA of four warps per (query block, query head, batch row);
+// at dh 64 and 128 each warp owns 32 query rows, two m16 tiles that share
+// every K and V fragment it loads (16 rows at dh 32, and at dh 256, whose
+// 16x256 f32 accumulator already takes 128 registers a thread). Both products run on
+// mma.sync.m16n8k16 (bf16 in, f32 accumulate) with operands loaded by
+// ldmatrix from shared-memory tiles whose rows are padded by 16 bytes, so
+// the eight rows of an 8x8 matrix fall in eight distinct bank groups. Q's
+// fragments are loaded once and kept in registers at dh <= 64 and re-read
+// from shared memory at larger dh. K and V tiles of BK keys sit in a ring
+// of two stages filled by cp.async one tile ahead of the mmas (a third
+// stage measured no faster). Scores and
+// probabilities never leave registers: the row max reduces over the four
+// lanes of a quad (two shuffles), exp2 takes scale*log2(e) folded into
+// one FMA with the running max, and P is repacked from the f32
+// accumulator fragment into the bf16 A fragment of P.V. The causal and
+// window mask is evaluated only on key blocks that straddle it; blocks
+// masked for a whole warp are skipped by that warp and blocks masked for
+// the whole CTA are not loaded. Causal query blocks run heaviest first.
+//
+// float32: flash_fwd_f32, the SIMT kernel of the first port (one CTA of
+// 128 threads per 64-row query block, 32-key blocks, f32 tiles in shared
+// memory, products on FMAs). The tensor-core route for f32 is TF32,
+// whose 10-bit mantissa would not keep the f32 results within 2e-5 of
+// the plain version.
+//
+// Both read kv head h / G for query head h from the model layout
+// (B, S, heads, dh), so GQA needs no copy of K or V. As in the reference,
+// scores are f32 and scaled, masked scores are the finite -1e30 (a row
+// that meets a block in which all its keys are masked accumulates exp(0)
+// that a later alpha = 0 wipes, where -inf would give NaN), l sums the
+// unrounded f32 p, p is rounded to the input type before p @ V, and the
+// output is acc / max(l, 1e-30).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "sm90_helpers.cuh"
 
 namespace {
+
+using namespace repro_sm90;
+
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// --- float32: the SIMT kernel ------------------------------------------------
 
 constexpr int BQ = 64;   // query rows per CTA
 constexpr int BK = 32;   // keys per inner block
 constexpr int NT = 128;  // threads per CTA
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int DH>
 constexpr size_t smem_floats() {
@@ -56,11 +72,12 @@ constexpr size_t smem_floats() {
          (size_t)BQ * (BK + 1) + 3 * BQ;
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(NT)
-    flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-              int H, int KV, int causal, int window, float scale) {
+    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int Sq,
+                  int Sk, int H, int KV, int causal, int window,
+                  float scale) {
   extern __shared__ float smem[];
   constexpr int QS = DH + 1;       // padded row stride of Q and K tiles
   constexpr int SS = BK + 1;       // padded row stride of the score tile
@@ -80,8 +97,8 @@ __global__ void __launch_bounds__(NT)
 
   for (int i = tid; i < BQ * DH; i += NT) {
     const int r = i / DH, d = i % DH, qi = q0 + r;
-    Qs[r * QS + d] =
-        qi < Sq ? to_f(q[((size_t)(b * Sq + qi) * H + h) * DH + d]) : 0.f;
+    Qs[r * QS + d] = qi < Sq ? q[((size_t)(b * Sq + qi) * H + h) * DH + d]
+                             : 0.f;
   }
   if (tid < BQ) {
     m_s[tid] = NEG_INF;
@@ -110,8 +127,8 @@ __global__ void __launch_bounds__(NT)
       const int r = i / DH, d = i % DH, ki = k0 + r;
       const bool ok = ki < Sk;
       const size_t off = ((size_t)(b * Sk + ki) * KV + kvh) * DH + d;
-      Ks[r * QS + d] = ok ? to_f(k[off]) : 0.f;
-      Vs[r * DH + d] = ok ? to_f(v[off]) : 0.f;
+      Ks[r * QS + d] = ok ? k[off] : 0.f;
+      Vs[r * DH + d] = ok ? v[off] : 0.f;
     }
     __syncthreads();
 
@@ -180,8 +197,7 @@ __global__ void __launch_bounds__(NT)
     for (int c = 0; c < BK; ++c) {
       float p[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)  // p in the input type, as the reference
-        p[i] = to_f(from_f<T>(Ss[(ty + 16 * i) * SS + c]));
+      for (int i = 0; i < 4; ++i) p[i] = Ss[(ty + 16 * i) * SS + c];
 #pragma unroll
       for (int j = 0; j < DH / 8; ++j) {
         const float vv = Vs[c * DH + tx + 8 * j];
@@ -197,67 +213,336 @@ __global__ void __launch_bounds__(NT)
     const int r = ty + 16 * i, qi = q0 + r;
     if (qi >= Sq) continue;
     const float l = fmaxf(l_s[r], 1e-30f);
-    T* orow = o + ((size_t)(b * Sq + qi) * H + h) * DH;
+    float* orow = o + ((size_t)(b * Sq + qi) * H + h) * DH;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) orow[tx + 8 * j] = from_f<T>(acc[i][j] / l);
+    for (int j = 0; j < DH / 8; ++j) orow[tx + 8 * j] = acc[i][j] / l;
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int KV, int causal,
-                   int window, float scale, cudaStream_t stream) {
+template <int DH>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int Sq, int Sk, int H, int KV, int causal,
+                       int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<DH>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_fwd<T, DH><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, causal,
-      window, scale);
+  flash_fwd_f32<DH><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
+      causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dh(const void* q, const void* k, const void* v, void* o,
-                      int B, int Sq, int Sk, int H, int KV, int dh,
-                      int causal, int window, float scale,
-                      cudaStream_t stream) {
-  switch (dh) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                           scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                           scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                            scale, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
-                            scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+// --- bfloat16: the tensor-core kernel -----------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// Tile sizes per head dim: NW warps of MT 16-row m-tiles (each K and V
+// fragment feeds MT mmas), BK keys per block, Q's fragments in registers
+// or re-read from shared memory. A warp holds MT x 16 x dh of f32 output
+// accumulator and MT x 16 x BK of scores; the sizes below are the ones
+// that measured fastest on the H100 among those that do not spill.
+template <int DH>
+struct TileBf16 {
+  static constexpr int NW = 4;
+  static constexpr int MT = DH == 64 || DH == 128 ? 2 : 1;
+  static constexpr int BK = DH >= 128 ? 32 : 64;
+  static constexpr bool Q_IN_REGS = DH <= 64;
+};
+
+// ROWS rows of DH bf16 from global (row r at src + r * stride, rows at or
+// past n_rows zero-filled) into a shared tile of padded row stride DH + 8.
+template <int ROWS, int DH, int NTH>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          size_t stride, int row0,
+                                          int n_rows, int tid) {
+  constexpr int CPR = DH / 8;  // 16-byte chunks per row
+  static_assert((ROWS * CPR) % NTH == 0, "tile chunks split evenly");
+#pragma unroll
+  for (int it = 0; it < ROWS * CPR / NTH; ++it) {
+    const int i = tid + it * NTH;
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = row0 + r < n_rows;
+    const bf16* s = src + (size_t)(ok ? row0 + r : 0) * stride + c * 8;
+    cp_async16(smem_u32(dst + r * (DH + 8) + c * 8), s, ok);
   }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(TileBf16<DH>::NW * 32)
+    flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o, int Sq,
+                   int Sk, int H, int KV, int causal, int window,
+                   float scale_log2) {
+  using TL = TileBf16<DH>;
+  constexpr int NW = TL::NW, MT = TL::MT, WR = 16 * MT;  // rows a warp
+  constexpr int BQ_ = WR * NW, BK_ = TL::BK, NTH = NW * 32;
+  constexpr int RS = DH + 8;   // padded row stride, elements
+  constexpr int KD = DH / 16;  // k-steps of Q K^T
+  constexpr int NS = BK_ / 8;  // 8-key n-tiles of S
+  constexpr int ND = DH / 8;   // 8-column n-tiles of O
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // BQ_ x RS
+  bf16* Ks = Qs + BQ_ * RS;                       // 2 stages x BK_ x RS
+  bf16* Vs = Ks + 2 * BK_ * RS;                   // 2 stages x BK_ x RS
+
+  // heaviest causal query blocks first: blockIdx.y is the slower grid dim
+  const int qb = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int kvh = h / (H / KV);
+  const int q0 = qb * BQ_;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // fragment row group, column pair
+
+  const size_t q_stride = (size_t)H * DH, kv_stride = (size_t)KV * DH;
+  const bf16* qbase = q + ((size_t)b * Sq * H + h) * DH;
+  const bf16* kbase = k + ((size_t)b * Sk * KV + kvh) * DH;
+  const bf16* vbase = v + ((size_t)b * Sk * KV + kvh) * DH;
+
+  // key blocks that hold a valid key for some row of this query block
+  const int q_hi = min(q0 + BQ_, Sq) - 1;
+  int kb_end = (Sk + BK_ - 1) / BK_;
+  if (causal) kb_end = min(kb_end, q_hi / BK_ + 1);
+  const int kb_begin = window > 0 ? max(0, q0 - window + 1) / BK_ : 0;
+
+  // key block kb_begin + j goes to stage j % 2
+  auto load_kv = [&](int kb, int st) {
+    load_tile<BK_, DH, NTH>(Ks + st * BK_ * RS, kbase, kv_stride, kb * BK_,
+                            Sk, tid);
+    load_tile<BK_, DH, NTH>(Vs + st * BK_ * RS, vbase, kv_stride, kb * BK_,
+                            Sk, tid);
+  };
+  load_tile<BQ_, DH, NTH>(Qs, qbase, q_stride, q0, Sq, tid);
+  if (kb_begin < kb_end) load_kv(kb_begin, 0);
+  cp_async_commit();
+
+  // this warp's rows; m-tile mt's fragment rows are wq0 + 16 mt + g (+ 8)
+  const int wq0 = q0 + warp * WR;
+  const int wq_hi = min(wq0 + WR - 1, Sq - 1);
+  const bool warp_live = wq0 < Sq;
+
+  // ldmatrix row addresses: Q (A, x4: rows 0-15, k 0-7 then 8-15), K (B,
+  // x4: keys 0-7 k 0-7, keys 0-7 k 8-15, keys 8-15 k 0-7, keys 8-15 k
+  // 8-15), V (B, x4 transposed: keys 0-7 d 0-7, keys 8-15 d 0-7, keys 0-7
+  // d 8-15, keys 8-15 d 8-15)
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8, a_col = (lane >> 4) * 8;
+  const int k_row = (lane & 7) + (lane >> 4) * 8, k_col = ((lane >> 3) & 1) * 8;
+  const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8, v_col = (lane >> 4) * 8;
+  const uint32_t q_addr = smem_u32(Qs + (warp * WR + a_row) * RS + a_col);
+
+  uint32_t qf[TL::Q_IN_REGS ? MT : 1][TL::Q_IN_REGS ? KD : 1][4];
+  float acc[MT][ND][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+  float m[MT][2], l[MT][2];  // running max (log2 units); this thread's
+#pragma unroll               // share of the row sums
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[mt][r] = NEG_INF;
+      l[mt][r] = 0.f;
+    }
+
+  for (int kb = kb_begin; kb < kb_end; ++kb) {
+    const int st = (kb - kb_begin) & 1;
+    if (kb + 1 < kb_end) load_kv(kb + 1, st ^ 1);  // into the other stage
+    cp_async_commit();
+    cp_async_wait<1>();  // this block's (and Q's) copies have landed
+    __syncthreads();
+    if constexpr (TL::Q_IN_REGS) {
+      if (kb == kb_begin) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int kk = 0; kk < KD; ++kk)
+            ldsm_x4(qf[mt][kk], q_addr + (mt * 16 * RS + kk * 16) * 2);
+      }
+    }
+
+    const int k0 = kb * BK_;
+    const bool skip = !warp_live || (causal && k0 > wq_hi) ||
+                      (window > 0 && k0 + BK_ - 1 <= wq0 - window);
+    if (!skip) {
+      const bf16* Kt = Ks + st * BK_ * RS;
+      const bf16* Vt = Vs + st * BK_ * RS;
+      float s[MT][NS][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t a[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (TL::Q_IN_REGS) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) a[mt][e] = qf[mt][kk][e];
+          } else {
+            ldsm_x4(a[mt], q_addr + (mt * 16 * RS + kk * 16) * 2);
+          }
+        }
+#pragma unroll
+        for (int np = 0; np < NS / 2; ++np) {
+          uint32_t bb[4];
+          ldsm_x4(bb, smem_u32(Kt + (np * 16 + k_row) * RS + kk * 16 + k_col));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(s[mt][2 * np], a[mt], bb[0], bb[1]);
+            mma_bf16(s[mt][2 * np + 1], a[mt], bb[2], bb[3]);
+          }
+        }
+      }
+
+      // A block that straddles the mask holds scores scaled into log2
+      // units with masked ones at -1e30 (sc = 1); any other block keeps
+      // the raw products and folds the scale into exp2's argument.
+      const bool full = k0 + BK_ <= Sk && (!causal || k0 + BK_ - 1 <= wq0) &&
+                        (window == 0 || k0 > wq_hi - window);
+      const float sc = full ? scale_log2 : 1.f;
+      if (!full) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < NS; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = k0 + 8 * j + 2 * t + (e & 1);
+              const int row = wq0 + 16 * mt + g + (e < 2 ? 0 : 8);
+              bool ok = key < Sk;
+              if (causal) ok = ok && key <= row;
+              if (window > 0) ok = ok && key > row - window;
+              s[mt][j][e] = ok ? s[mt][j][e] * scale_log2 : NEG_INF;
+            }
+      }
+
+      uint32_t pa[MT][NS / 2][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          mx[0] = fmaxf(mx[0], fmaxf(s[mt][j][0], s[mt][j][1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[mt][j][2], s[mt][j][3]));
+        }
+        float neg_m[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[mt][r], mx[r] * sc);
+          const float alpha = ex2(m[mt][r] - m_new);
+          m[mt][r] = m_new;
+          neg_m[r] = -m_new;
+          l[mt][r] *= alpha;
+#pragma unroll
+          for (int j = 0; j < ND; ++j) {
+            acc[mt][j][2 * r] *= alpha;
+            acc[mt][j][2 * r + 1] *= alpha;
+          }
+        }
+        // p in f32 into l; rounded to bf16 into the A fragments of P.V
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          const float p0 = ex2(fmaf(s[mt][j][0], sc, neg_m[0]));
+          const float p1 = ex2(fmaf(s[mt][j][1], sc, neg_m[0]));
+          const float p2 = ex2(fmaf(s[mt][j][2], sc, neg_m[1]));
+          const float p3 = ex2(fmaf(s[mt][j][3], sc, neg_m[1]));
+          l[mt][0] += p0 + p1;
+          l[mt][1] += p2 + p3;
+          pa[mt][j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
+          pa[mt][j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk)
+#pragma unroll
+        for (int dp = 0; dp < ND / 2; ++dp) {
+          uint32_t bb[4];
+          ldsm_x4_t(bb, smem_u32(Vt + (kk * 16 + v_row) * RS + dp * 16 + v_col));
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16(acc[mt][2 * dp], pa[mt][kk], bb[0], bb[1]);
+            mma_bf16(acc[mt][2 * dp + 1], pa[mt][kk], bb[2], bb[3]);
+          }
+        }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  cp_async_wait<0>();
+
+  if (!warp_live) return;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[mt][r];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      lr = fmaxf(lr, 1e-30f);
+      const int row = wq0 + 16 * mt + g + 8 * r;
+      if (row >= Sq) continue;
+      bf16* orow = o + ((size_t)(b * Sq + row) * H + h) * DH + 2 * t;
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(acc[mt][j][2 * r] / lr, acc[mt][j][2 * r + 1] / lr);
+    }
+}
+
+template <int DH>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int B, int Sq, int Sk, int H, int KV, int causal,
+                        int window, float scale, cudaStream_t stream) {
+  using TL = TileBf16<DH>;
+  constexpr int BQ_ = 16 * TL::MT * TL::NW;
+  const size_t smem = sizeof(bf16) * (BQ_ + 4 * TL::BK) * (DH + 8);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + BQ_ - 1) / BQ_);
+  flash_fwd_bf16<DH><<<grid, TL::NW * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), Sq, Sk, H, KV,
+      causal, window, scale * LOG2E);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// q (B, Sq, H, dh), k/v (B, Sk, KV, dh), o (B, Sq, H, dh), all contiguous.
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
+// q (B, Sq, H, dh), k/v (B, Sk, KV, dh), o (B, Sq, H, dh), all contiguous
+// (bf16: 16-byte aligned). dtype: 0 = float32 (SIMT kernel), 1 = bfloat16
+// (tensor-core kernel). Returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int dtype, int B,
                                    int Sq, int Sk, int H, int KV, int dh,
                                    int causal, int window, float scale,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_dh<float>(q, k, v, o, B, Sq, Sk, H, KV, dh, causal, window,
-                            scale, s);
-  if (dtype == 1)
-    return launch_dh<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, KV, dh, causal,
-                                    window, scale, s);
-  return cudaErrorInvalidValue;
+#define FLASH_CASE(D)                                                        \
+  case D:                                                                    \
+    return dtype == 0 ? launch_f32<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, \
+                                      window, scale, s)                      \
+                      : launch_bf16<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, \
+                                       window, scale, s);
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  switch (dh) {
+    FLASH_CASE(32)
+    FLASH_CASE(64)
+    FLASH_CASE(128)
+    FLASH_CASE(256)
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef FLASH_CASE
 }

@@ -2,12 +2,12 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface, and loaded with ``ctypes``.
-The library's file name carries a hash of its source, so an edited
-source is rebuilt and an unchanged one is loaded as it is. Libraries go
-to ``build/`` at the root of the checkout. Nothing is built while a
-module is imported: ``library(name)`` builds at first use, and
-``build_all()`` builds every source at once, one ``nvcc`` per source,
-all started together.
+The library's file name carries a hash of its source and of the shared
+headers ``csrc/*.cuh``, so an edited source is rebuilt and an unchanged
+one is loaded as it is. Libraries go to ``build/`` at the root of the
+checkout. Nothing is built while a module is imported: ``library(name)``
+builds at first use, and ``build_all()`` builds every source at once, one
+``nvcc`` per source, all started together.
 """
 from __future__ import annotations
 
@@ -52,8 +52,12 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD / f"lib{src.stem}-{digest}.so"
+    """The library's path, named by a hash of its source and of the shared
+    headers (``csrc/*.cuh``) it may include."""
+    digest = hashlib.sha1(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
 
 
 def build_all() -> Dict[str, float]:

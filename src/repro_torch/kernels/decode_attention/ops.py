@@ -23,8 +23,12 @@ from repro_torch.models.attention import (decode_attention as
                                           _model_decode_attention,
                                           dequantize_kv)
 
-_MIN_CHUNK = 32          # cache slots per CTA, at least
-_CTAS_PER_SM = 4         # split-K target: this many CTAs per SM
+_MIN_CHUNK = 32          # K3: cache slots per CTA, at least
+_CTAS_PER_SM = 4         # K3: split-K target, this many CTAs per SM
+SLOT_TILE = 32           # K2: cache slots per warp tile, one per lane
+MAX_CLUSTER = 8          # K2: CTAs per cluster, the portable limit
+_K2_CTAS_PER_SM = 2      # K2: target CTAs per SM
+MAX_GROUP = 8            # K2: query heads per kv head, at most
 
 
 def decode_attention_plain(q, cache_k, cache_v, pos, *, window: int = 0,
@@ -82,31 +86,61 @@ def _sm_count(index) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _splits(B: int, S: int, KV: int, device):
-    """Split-K shape: enough CTAs to fill the card, chunks of at least
-    ``_MIN_CHUNK`` slots. Returns (n_splits, chunk)."""
-    sms = _sm_count(device.index)
+def split_plan(B: int, S: int, KV: int, sms: int):
+    """K3's split-K shape on a card of ``sms`` SMs: enough CTAs to fill the
+    card, chunks of at least ``_MIN_CHUNK`` slots. Returns (n_splits,
+    chunk): split i takes slots [i * chunk, min(S, (i + 1) * chunk))."""
     want = max(1, math.ceil(_CTAS_PER_SM * sms / (B * KV)))
     n = max(1, min(want, math.ceil(S / _MIN_CHUNK)))
     chunk = math.ceil(S / n)
     return math.ceil(S / chunk), chunk
 
 
-def _launch(entry: str, q, ptrs, pos, S, KV, window, ring):
+def cluster_plan(B: int, S: int, KV: int, sms: int):
+    """K2's launch shape on a card of ``sms`` SMs: one cluster of
+    ``n_ctas`` (1 to ``MAX_CLUSTER``) CTAs per (batch, kv head) row, about
+    ``_K2_CTAS_PER_SM`` CTAs per SM in all, each CTA over ``chunk``
+    consecutive slots and at least one ``SLOT_TILE`` of them when S allows.
+    Returns (n_ctas, chunk): CTA r takes slots [r * chunk, min(S, (r + 1)
+    * chunk)), and every CTA's range is non-empty."""
+    want = math.ceil(_K2_CTAS_PER_SM * sms / (B * KV))
+    n = max(1, min(MAX_CLUSTER, want, S // SLOT_TILE))
+    chunk = math.ceil(S / n)
+    return math.ceil(S / chunk), chunk
+
+
+def _launch_k2(q, cache_k, cache_v, pos, window, ring):
     B, _, H, dh = q.shape
+    S, KV = cache_k.shape[1], cache_k.shape[2]
+    n_ctas, chunk = cluster_plan(B, S, KV, _sm_count(q.device.index))
+    o = torch.empty_like(q)
+    fn = _build.entry("decode_attention", "decode_attention_fwd", 4, 11)
+    err = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+             o.data_ptr(), _build.DTYPES[q.dtype], B, S, H, KV, dh,
+             int(pos), int(window), int(ring), n_ctas, chunk, dh ** -0.5,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "decode_attention_fwd")
+    return o
+
+
+def _launch_k3(q, cache_k, k_scale, cache_v, v_scale, pos, window, ring):
+    B, _, H, dh = q.shape
+    S, KV = cache_k.shape[1], cache_k.shape[2]
     G = H // KV
-    n_splits, chunk = _splits(B, S, KV, q.device)
+    n_splits, chunk = split_plan(B, S, KV, _sm_count(q.device.index))
     o = torch.empty_like(q)
     o_part = torch.empty((B * KV, n_splits, G, dh), dtype=torch.float32,
                          device=q.device)
     ml_part = torch.empty((B * KV, n_splits, G, 2), dtype=torch.float32,
                           device=q.device)
-    fn = _build.entry("decode_attention", entry, len(ptrs) + 4, 11)
-    err = fn(q.data_ptr(), *ptrs, o.data_ptr(), o_part.data_ptr(),
-             ml_part.data_ptr(), _build.DTYPES[q.dtype], B, S, H, KV, dh,
+    fn = _build.entry("decode_attention", "decode_attention_q8_fwd", 8, 11)
+    err = fn(q.data_ptr(), cache_k.data_ptr(), k_scale.data_ptr(),
+             cache_v.data_ptr(), v_scale.data_ptr(), o.data_ptr(),
+             o_part.data_ptr(), ml_part.data_ptr(), _build.DTYPES[q.dtype],
+             B, S, H, KV, dh,
              int(pos), int(window), int(ring), n_splits, chunk, dh ** -0.5,
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, entry)
+    _build.check(err, "decode_attention_q8_fwd")
     return o
 
 
@@ -118,9 +152,14 @@ def decode_attention(q, cache_k, cache_v, pos, *, window: int = 0,
         return decode_attention_plain(q, cache_k, cache_v, pos,
                                       window=window, ring=ring)
     _check(q, cache_k, cache_v, None)
-    o = _launch("decode_attention_fwd", q,
-                (cache_k.data_ptr(), cache_v.data_ptr()), pos,
-                cache_k.shape[1], cache_k.shape[2], window, ring)
+    G = q.shape[2] // cache_k.shape[2]
+    if G > MAX_GROUP:
+        raise ValueError(f"decode_attention: {G} query heads per kv head; "
+                         f"the kernel takes at most {MAX_GROUP}")
+    if any(t.data_ptr() % 16 for t in (q, cache_k, cache_v)):
+        raise ValueError("decode_attention: q and the caches must be "
+                         "16-byte aligned")
+    o = _launch_k2(q, cache_k, cache_v, pos, window, ring)
     _build.count_launch(decode_attention)
     return o
 
@@ -134,10 +173,8 @@ def decode_attention_quant(q, cache_k, k_scale, cache_v, v_scale, pos, *,
                                             v_scale, pos, window=window,
                                             ring=ring)
     _check(q, cache_k, cache_v, torch.int8, (k_scale, v_scale))
-    o = _launch("decode_attention_q8_fwd", q,
-                (cache_k.data_ptr(), k_scale.data_ptr(), cache_v.data_ptr(),
-                 v_scale.data_ptr()), pos, cache_k.shape[1],
-                cache_k.shape[2], window, ring)
+    o = _launch_k3(q, cache_k, k_scale, cache_v, v_scale, pos, window,
+                   ring)
     _build.count_launch(decode_attention_quant)
     return o
 

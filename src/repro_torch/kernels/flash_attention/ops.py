@@ -3,8 +3,9 @@
 q (B, Sq, H, dh), k/v (B, Sk, KV, dh) with GQA (H = KV * G); query i sits
 at position i and key j at position j, as in the reference's wrapper
 (``repro.kernels.flash_attention.ops.flash_attention``). On a CUDA tensor
-``flash_attention`` launches the kernel of ``csrc/flash_attention.cu``;
-on a CPU tensor it runs ``flash_attention_plain``.
+``flash_attention`` launches the kernel of ``csrc/flash_attention.cu``
+(bfloat16 on the tensor cores, float32 on the CUDA cores); on a CPU
+tensor it runs ``flash_attention_plain``.
 """
 from __future__ import annotations
 
@@ -46,6 +47,10 @@ def _check(q, k, v) -> None:
                          f"{_build.HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: inputs must be contiguous")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("flash_attention: bfloat16 inputs must be 16-byte "
+                         "aligned")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):

@@ -4,7 +4,8 @@ is present. On a machine with one:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: 2e-5 for float32 (summation order only), 2e-2 for bfloat16;
+Tolerances: 2e-5 for float32 (summation order only; K1's float32 kernel
+runs on the CUDA cores, not in TF32), 2e-2 for bfloat16;
 for the mLSTM scan (K4, float32 only) and the SSM scan (K5), whose
 states sum S steps, the largest |difference| in a row over the row's
 largest |plain value| at most 1e-4 in float32; K5's bfloat16 y, rounded
@@ -43,15 +44,7 @@ def _err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("B,S,H,KV,dh", [
-    (2, 256, 4, 2, 64), (1, 128, 4, 4, 32), (2, 192, 8, 2, 128),
-    (1, 96, 3, 1, 64), (1, 64, 2, 2, 256), (1, 200, 2, 2, 64),
-    (2, 1024, 16, 8, 128), (1, 300, 25, 5, 64),
-])
-@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
-                                           (True, 1024), (False, 0)])
-def test_flash_kernel_vs_plain(gen, dtype, B, S, H, KV, dh, causal, window):
+def _check_flash(gen, dtype, B, S, H, KV, dh, causal, window):
     dt = getattr(torch, dtype)
     q, k, v = (torch.randn(B, S, n, dh, generator=gen, device="cuda",
                            dtype=dt) for n in (H, KV, KV))
@@ -62,6 +55,48 @@ def test_flash_kernel_vs_plain(gen, dtype, B, S, H, KV, dh, causal, window):
     assert fl.flash_attention.launches == before + 1
     assert out.dtype == dt and out.shape == q.shape
     assert _err(out, ref) < _tol(dt)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,KV,dh", [
+    (2, 256, 4, 2, 64), (1, 128, 4, 4, 32), (2, 192, 8, 2, 128),
+    (1, 96, 3, 1, 64), (1, 64, 2, 2, 256), (1, 200, 2, 2, 64),
+    (2, 1024, 16, 8, 128), (1, 300, 25, 5, 64),
+])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
+                                           (True, 1024), (False, 0)])
+def test_flash_kernel_vs_plain(gen, dtype, B, S, H, KV, dh, causal, window):
+    _check_flash(gen, dtype, B, S, H, KV, dh, causal, window)
+
+
+# K1's tile edges: bf16 query blocks of 64 rows (16 a warp) and key blocks
+# of 64 (32 at dh 256); f32 query blocks of 64 and key blocks of 32
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("S", [1, 15, 17, 63, 64, 65, 127, 129, 200, 1000])
+def test_flash_kernel_tile_edges(gen, dtype, dh, S):
+    _check_flash(gen, dtype, 1, S, 4, 2, dh, True, 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("window", [1, 63, 64, 65])
+def test_flash_kernel_window_edges(gen, dtype, dh, window):
+    _check_flash(gen, dtype, 2, 200, 4, 2, dh, True, window)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("G", [1, 2, 5, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_gqa_groups(gen, dtype, G, causal):
+    _check_flash(gen, dtype, 2, 129, 2 * G, 2, 64, causal, 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("S", [1, 65, 200])
+def test_flash_kernel_non_causal(gen, dtype, dh, S):
+    _check_flash(gen, dtype, 2, S, 4, 2, dh, False, 0)
 
 
 DECODE_CASES = [
@@ -88,10 +123,12 @@ def test_decode_kernels_vs_plain(gen, dtype, B, S, H, KV, dh, window, ring,
     dt = getattr(torch, dtype)
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda", dtype=dt)
     q, ck, cv = r(B, 1, H, dh), r(B, S, KV, dh), r(B, S, KV, dh)
+    before = dec.decode_attention.launches
     out = dec.decode_attention(q, ck, cv, pos, window=window, ring=ring)
     ref = dec.decode_attention_plain(q, ck, cv, pos, window=window,
                                      ring=ring)
     torch.cuda.synchronize()
+    assert dec.decode_attention.launches == before + 1
     assert out.dtype == dt and _err(out, ref) < _tol(dt)
     k8, ks = attn.quantize_kv(ck)
     v8, vs = attn.quantize_kv(cv)
@@ -101,6 +138,44 @@ def test_decode_kernels_vs_plain(gen, dtype, B, S, H, KV, dh, window, ring,
                                            window=window, ring=ring)
     torch.cuda.synchronize()
     assert out.dtype == dt and _err(out, ref) < _tol(dt)
+
+
+# K2's edges: clusters of up to 8 CTAs, warp tiles of 32 slots
+K2_EDGE_CASES = [
+    # a full cache at pos 0, 1 and 31: most of a cluster has no valid slot
+    (2, 1024, 16, 8, 128, 0, False, 0),
+    (2, 1024, 16, 8, 128, 0, False, 1),
+    (2, 1024, 16, 8, 128, 0, False, 31),
+    # S not a multiple of the slot tile
+    (2, 100, 4, 2, 64, 0, False, 150),
+    (1, 1000, 4, 1, 128, 0, True, 1500),
+    (3, 257, 10, 5, 64, 0, False, 200),
+    # a wrapped ring under window 1: one valid slot
+    (2, 64, 4, 2, 64, 1, True, 200),
+    # B*KV = 64 rows: 5 CTAs a row, two tiles a warp
+    (8, 1024, 16, 8, 128, 0, False, 1100),
+    # G = 5 and G = 8
+    (2, 512, 10, 2, 64, 0, True, 700),
+    (2, 512, 16, 2, 128, 0, False, 300),
+    (1, 96, 8, 1, 256, 0, False, 95),
+    (1, 64, 8, 1, 32, 17, True, 80),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,KV,dh,window,ring,pos", K2_EDGE_CASES)
+def test_decode_k2_edges(gen, dtype, B, S, H, KV, dh, window, ring, pos):
+    dt = getattr(torch, dtype)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda", dtype=dt)
+    q, ck, cv = r(B, 1, H, dh), r(B, S, KV, dh), r(B, S, KV, dh)
+    before = dec.decode_attention.launches
+    out = dec.decode_attention(q, ck, cv, pos, window=window, ring=ring)
+    ref = dec.decode_attention_plain(q, ck, cv, pos, window=window,
+                                     ring=ring)
+    torch.cuda.synchronize()
+    assert dec.decode_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    assert _err(out, ref) < _tol(dt)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -117,6 +192,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                      device="cuda").transpose(1, 2)   # (1, 32, 2, 64)
     with pytest.raises(ValueError, match="contiguous"):
         dec.decode_attention(q, ck, ck, 3)
+    q = torch.randn(1, 1, 18, 64, generator=gen, device="cuda")
+    ck = torch.randn(1, 32, 2, 64, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="at most 8"):
+        dec.decode_attention(q, ck, ck, 3)
+    buf = torch.randn(1 + 64 * 4 * 64, generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    x = buf[1:].view(1, 64, 4, 64)   # contiguous, 2 bytes past alignment
+    with pytest.raises(ValueError, match="aligned"):
+        fl.flash_attention(x, x, x)
 
 
 def _row_rel(out, ref) -> float:

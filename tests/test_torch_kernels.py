@@ -148,3 +148,46 @@ def test_quantize_kv_matches_reference():
     assert _diff(s, rs) == 0.0
     assert _diff(port_attn.dequantize_kv(q, s, torch.float32),
                  ref_attn.dequantize_kv(rq, rs, jnp.float32)) < 1e-6
+
+
+# --- launch planning of the decode kernels (pure Python, no card) ----------
+
+PLAN_SHAPES = [(4, 1024, 8), (4, 1024, 5), (8, 1024, 8), (16, 1024, 4),
+               (1, 1, 1), (1, 31, 2), (1, 32, 1), (2, 33, 4), (1, 65, 1),
+               (1, 100, 2), (3, 257, 5), (3, 300, 5), (2, 4096, 8),
+               (1, 1000, 1)]
+
+
+def _ranges(n, chunk, S):
+    return [range(r * chunk, min(S, (r + 1) * chunk)) for r in range(n)]
+
+
+@pytest.mark.parametrize("B,S,KV", PLAN_SHAPES)
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_k2_cluster_plan_covers_every_slot_once(B, S, KV, sms):
+    n, chunk = dec.cluster_plan(B, S, KV, sms)
+    assert 1 <= n <= dec.MAX_CLUSTER
+    ranges = _ranges(n, chunk, S)
+    assert [s for r in ranges for s in r] == list(range(S))
+    assert all(len(r) > 0 for r in ranges)
+    if S >= dec.SLOT_TILE:
+        assert chunk >= dec.SLOT_TILE
+
+
+@pytest.mark.parametrize("B,S,KV", PLAN_SHAPES)
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_k3_split_plan_covers_every_slot_once(B, S, KV, sms):
+    n, chunk = dec.split_plan(B, S, KV, sms)
+    ranges = _ranges(n, chunk, S)
+    assert [s for r in ranges for s in r] == list(range(S))
+    assert all(len(r) > 0 for r in ranges)
+
+
+def test_k2_cluster_plan_at_serving_shapes():
+    """qwen3-1.7b (B 4, KV 8) and hymba-1.5b (B 4, KV 5) over 1024 slots on
+    the H100's 132 SMs: full clusters of 8 CTAs of 128 slots (four warp
+    tiles each)."""
+    assert dec.cluster_plan(4, 1024, 8, 132) == (8, 128)
+    assert dec.cluster_plan(4, 1024, 5, 132) == (8, 128)
+    # B*KV = 64 rows: 5 CTAs a row fill the card twice over
+    assert dec.cluster_plan(8, 1024, 8, 132) == (5, 205)
