@@ -14,9 +14,11 @@ exits non-zero:
                full-width qwen3-1.7b, K4 (the mLSTM scan) at those of
                full-width xlstm-350m, and K5 (the SSM scan) at those of
                full-width hymba-1.5b, the scans from the empty state,
-               from a nonzero state and for one decode step; K1 and K2
-               also at hymba's heads (25 of dh 64 over 5 kv heads) with
-               its window and ring cache; each held against its plain
+               from a nonzero state (at S 1024 and at S 1000, off the
+               chunk) and for one decode step; K1 and K2 also at hymba's
+               heads (25 of dh 64 over 5 kv heads) with its window and
+               ring cache, and K2 at chatglm3-6b's (32 over 2 kv heads,
+               G 16); each held against its plain
                PyTorch version; kernel, plain and library times, the
                card's bound for the same work, bound_frac (bound / kernel
                time) and vs_library (kernel / library time).
@@ -47,6 +49,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import torch
@@ -56,6 +59,11 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12                # H100 SXM f32 peak outside the tensor cores
+# f32-accurate products on the tensor cores: 3xTF32 (each operand split
+# into a TF32 high and low part, hi.hi + hi.lo + lo.hi) at a third of the
+# 495 TFLOP/s TF32 peak; K4's bound, as the least time for its function at
+# f32 accuracy whatever the design
+TF32X3_FLOPS = 495e12 / 3
 # kernel vs plain, bf16: the largest |difference| in a row of dh outputs
 # over the largest |plain value| in that row, at most 2**-6 (two to four
 # bf16 ulps of the row's largest value), so the check is as tight for the
@@ -96,6 +104,11 @@ XLSTM_LAYERS = 8
 # size and depth), and (2) in bf16, the kernels' distance to the float32
 # logits may exceed the plain versions' own by less than
 # BF16_MODEL_REL_TOL.
+
+
+# chatglm3-6b's attention heads (the port serves no chatglm model yet):
+# G = 16 query heads per kv head, above K2's 8 a launch
+GLM_HEADS = types.SimpleNamespace(n_heads=32, n_kv_heads=2, head_dim=128)
 
 
 def emit(**kw) -> None:
@@ -380,9 +393,11 @@ def check_mlstm(k4, cfg, dev):
     """K4 at the serving shapes of full-width xlstm-350m (f32, as the
     model casts): a prefill from the omitted state, one from a nonzero
     state (the first prefill's final state, as the model's prefill starts
-    from a state), and one decode step (S = 1) from that state. h and
-    every leaf of the final state are held against the plain version.
-    Returns the from-state prefill's numbers, the main path's shape."""
+    from a state), one from a state at S = 1000 (not a multiple of the
+    chunk), and one decode step (S = 1) from that state; S >= k4.CHUNK
+    takes the chunkwise kernels, S = 1 the step kernel. h and every leaf
+    of the final state are held against the plain version. Returns the
+    from-state prefill's numbers, the main path's shape."""
     H = cfg.n_heads
     dh = int(cfg.mlstm_proj_factor * cfg.d_model) // H
     B = SERVE_BATCH
@@ -399,6 +414,7 @@ def check_mlstm(k4, cfg, dev):
     main = None
     for label, S, st in [("prefill, no state", SERVE_SEQ, None),
                          ("prefill from state", SERVE_SEQ, state),
+                         ("prefill from state, S 1000", 1000, state),
                          ("decode from state", 1, state)]:
         args = first if st is None else mk(S)
         h, fin = k4.mlstm_scan(*args, st)
@@ -416,14 +432,23 @@ def check_mlstm(k4, cfg, dev):
         # (the larger of its device and host time)
         plain = (device_ms(k4.mlstm_scan_plain, sets, iters=8) if S == 1
                  else host_ms(k4.mlstm_scan_plain, sets, iters=2))
-        # per step and (batch, head): f C, + i v k^T and C q (5 dh^2
-        # flops), n's update and n . q (5 dh); f32 on the CUDA cores
-        b_ms, b_by = bound_ms(in_bytes + out_bytes,
-                              B * H * S * (5 * dh * dh + 5 * dh), F32_FLOPS)
+        # per step and (batch, head) the chunkwise form's two dh x dh
+        # products (4 dh^2 flops) at f32 accuracy on the tensor cores
+        # (3xTF32); beside it the step form's f C, + i v k^T and C q
+        # (5 dh^2) and n's update and n . q (5 dh) on the f32 CUDA cores,
+        # the bound of PRs 13-15
+        b_ms, b_by = bound_ms(in_bytes + out_bytes, 4 * B * H * S * dh * dh,
+                              TF32X3_FLOPS)
+        f32_ms, f32_by = bound_ms(in_bytes + out_bytes,
+                                  B * H * S * (5 * dh * dh + 5 * dh),
+                                  F32_FLOPS)
         m = dict(**err, **timing(kern, plain, None, b_ms, b_by))
         emit(phase="kernel", name="K4 mlstm_scan", case=label, B=B, S=S,
-             H=H, dh=dh, host_ms=kern_host, plain_timing=(
-                 "device_ms" if S == 1 else "host_ms"), **m)
+             H=H, dh=dh, path="chunks" if k4.uses_chunks(S) else "steps",
+             host_ms=kern_host, plain_timing=(
+                 "device_ms" if S == 1 else "host_ms"),
+             bound_ms_f32_cuda_cores=f32_ms, bound_by_f32_cuda_cores=f32_by,
+             **m)
         if label == "prefill from state":
             main = m
     return main
@@ -433,8 +458,10 @@ def check_ssm(k5, cfg, dev):
     """K5 at the serving shapes of full-width hymba-1.5b, with x, a_log and
     d_skip in the model's bf16: a prefill from the omitted state, one from
     a nonzero state (the first prefill's final state; the model's prefill
-    starts from its cache's state) and one decode step (S = 1) from that
-    state; then the prefill from a state with x, a_log and d_skip in f32.
+    starts from its cache's state), one from a state at S = 1000 (not a
+    multiple of the chunk) and one decode step (S = 1) from that state;
+    then the prefill from a state with x, a_log and d_skip in f32.
+    S >= k5.CHUNK takes the chunked kernels, S = 1 the step kernel.
     y and the final state are held against the plain version. a_log,
     d_skip and dt are drawn from a seed, so every head has its own A and D.
     Returns the bf16 prefill from a state's numbers, the main path's
@@ -457,6 +484,7 @@ def check_ssm(k5, cfg, dev):
     for label, S, st, dtype in [
             ("prefill, no state", SERVE_SEQ, None, bf16),
             ("prefill from state", SERVE_SEQ, state, bf16),
+            ("prefill from state, S 1000", 1000, state, bf16),
             ("decode from state", 1, state, bf16),
             ("prefill from state, f32", SERVE_SEQ, state, torch.float32)]:
         args = first if st is None else mk(S, dtype)
@@ -484,6 +512,7 @@ def check_ssm(k5, cfg, dev):
                  **timing(kern, plain, None, b_ms, b_by))
         emit(phase="kernel", name="K5 ssm_scan", case=label, B=B, S=S,
              Hs=Hs, P=P, N=N, x_dtype=str(dtype).split(".")[-1],
+             path="chunks" if k5.uses_chunks(S) else "steps",
              y_row_rel_err=err_y["max_row_rel_err"], y_row_rel_tol=y_tol,
              state_row_rel_err=err_s["max_row_rel_err"],
              state_row_rel_tol=SCAN_ROW_REL_TOL, host_ms=kern_host,
@@ -871,6 +900,12 @@ def main() -> int:
     check_decode(dec, attn, hcfg, dev,
                  [("ring", SERVE_SEQ + DECODE_STEPS - 1, True, window)],
                  quant=False, model="hymba-1.5b")
+    # K2 at chatglm3-6b's decode heads (src/repro/configs/chatglm3_6b.py:
+    # 32 query heads over 2 kv heads of dh 128, G 16), which the wrapper
+    # runs as two launches of 8 query heads per kv head
+    check_decode(dec, attn, GLM_HEADS, dev,
+                 [("full", SERVE_SEQ + DECODE_STEPS - 1, False, 0)],
+                 quant=False, model="chatglm3-6b")
 
     model_phase(cfg, dev, "qwen3-1.7b")
     model_phase(xcfg, dev, "xlstm-350m")
@@ -937,8 +972,10 @@ def main() -> int:
     emit(phase="serve", model="xlstm-350m",
          **serve_summary(xres, xeps, t_x, n_xreq),
          launches={"K4": launches["K4"]},
-         # one launch per pair block for the prefill and for each decode
-         # step; each endpoint's compile() runs a prefill and one step
+         # one wrapper call per pair block for the prefill and for each
+         # decode step; each endpoint's compile() runs a prefill and one
+         # step. A prefill call (S >= k4.CHUNK) is two kernel launches,
+         # the chunkwise path's; a decode call one, the step kernel
          expected_k4_launches=f"{P} x (1 + {DECODE_STEPS}) per request + "
                               f"{P} x 2 per endpoint warm-up")
     check_served(xres, n_xreq, {"K4": launches["K4"]})
@@ -967,9 +1004,10 @@ def main() -> int:
     h_launches = {k: w.launches for k, w in h_wrappers.items()}
     launches["K5"] = h_launches["K5"]
     n_hreq = sum(len(b) for b in HYMBA_BURSTS)
-    # per layer: one K1 and one K5 launch for the prefill, one K2 and one
-    # K5 launch for each decode step; each endpoint's compile() runs a
-    # prefill and one step
+    # per layer: one K1 and one K5 call for the prefill, one K2 and one
+    # K5 call for each decode step; each endpoint's compile() runs a
+    # prefill and one step. A K5 prefill call (S >= k5.CHUNK) is three
+    # kernel launches, the chunked path's; a decode call one
     L, n_warm = hcfg.n_layers, len(heps)
     expected = {"K1": L * (n_hreq + n_warm),
                 "K2": L * (DECODE_STEPS * n_hreq + n_warm),

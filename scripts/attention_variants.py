@@ -136,9 +136,9 @@ def flash_runner(lib):
 
 
 def decode_runner(lib):
-    fn = lib.decode_attention_fwd
+    fn = lib.decode_attention_group_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
                    + [ctypes.c_float, ctypes.c_void_p])
 
     def run(q, k, v, pos, window, ring):
@@ -147,8 +147,8 @@ def decode_runner(lib):
         n, chunk = dec.cluster_plan(B, S, KV, dec._sm_count(q.device.index))
         o = torch.empty_like(q)
         _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), 1, B, S, H, KV, dh, pos, window,
-                        int(ring), n, chunk, dh ** -0.5, stream()),
+                        o.data_ptr(), 1, B, S, H, KV, H // KV, 0, dh, pos,
+                        window, int(ring), n, chunk, dh ** -0.5, stream()),
                      "decode variant")
         return o
     return run

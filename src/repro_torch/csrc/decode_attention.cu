@@ -46,7 +46,9 @@
 // after one cluster barrier each rank merges the ranks' partials of an
 // n_ranks-th of the outputs, normalises and writes them. A warp, CTA
 // or rank with no valid slot merges as (m = -1e30, l = 0, acc = 0), which
-// adds nothing and no NaN.
+// adds nothing and no NaN. A group of more than 8 query heads per kv head
+// runs as several launches, each over an equal sub-group of at most 8
+// heads, reading q and writing o in place (decode_attention_group_fwd).
 //
 // K3, decode_split + decode_combine: a CTA of four warps per (slot chunk,
 // batch*kv-head row); each warp runs its own online softmax over every
@@ -474,8 +476,8 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(K2Shape<T, DH>::NW * 32)
     decode_cluster(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                   int KV, int pos, int window, int ring, int chunk,
-                   int n_stages, float scale_log2) {
+                   int KV, int qg, int q0, int pos, int window, int ring,
+                   int chunk, int n_stages, float scale_log2) {
   using SH = K2Shape<T, DH>;
   constexpr int NW_ = SH::NW, NTH = NW_ * 32, RB = SH::RB, PS = SH::PS;
   constexpr int GM = SH::GM;
@@ -535,7 +537,7 @@ __global__ void __launch_bounds__(K2Shape<T, DH>::NW * 32)
   {
     constexpr int QROW = SH::MMA ? RB : DH * (int)sizeof(float);
     const int q_rows = SH::MMA ? G + 1 : GM;
-    const T* qrow0 = q + ((size_t)b * H + (size_t)kvh * G) * DH;
+    const T* qrow0 = q + ((size_t)bkv * qg + q0) * DH;
     for (int i = threadIdx.x; i < q_rows * CPR; i += NTH) {
       const int r = i / CPR, c = i % CPR;
       cp_async16(smem_u32(qsm + r * QROW + c * 16),
@@ -635,16 +637,16 @@ __global__ void __launch_bounds__(K2Shape<T, DH>::NW * 32)
         L += src[DH + 1] * sc;
       }
     }
-    o[((size_t)b * H + (size_t)kvh * G + g) * DH + d] =
+    o[((size_t)bkv * qg + q0 + g) * DH + d] =
         from_f<T>(a / fmaxf(L, 1e-30f));
   }
 }
 
 template <typename T, int DH>
 cudaError_t launch_k2(const void* q, const void* k, const void* v, void* o,
-                      int B, int S, int H, int KV, int pos, int window,
-                      int ring, int n_ctas, int chunk, float scale,
-                      cudaStream_t stream) {
+                      int B, int S, int H, int KV, int qg, int q0, int pos,
+                      int window, int ring, int n_ctas, int chunk,
+                      float scale, cudaStream_t stream) {
   using SH = K2Shape<T, DH>;
   if (n_ctas < 1 || n_ctas > MAX_CLUSTER || chunk < 1 ||
       (long)n_ctas * chunk < S)
@@ -671,7 +673,7 @@ cudaError_t launch_k2(const void* q, const void* k, const void* v, void* o,
   err = cudaLaunchKernelEx(&cfg, decode_cluster<T, DH>,
                            static_cast<const T*>(q), static_cast<const T*>(k),
                            static_cast<const T*>(v), static_cast<T*>(o), S, H,
-                           KV, pos, window, ring, chunk, n_stages,
+                           KV, qg, q0, pos, window, ring, chunk, n_stages,
                            scale * LOG2E);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -679,14 +681,16 @@ cudaError_t launch_k2(const void* q, const void* k, const void* v, void* o,
 
 template <typename T>
 cudaError_t launch_k2_dh(int dh, const void* q, const void* k, const void* v,
-                         void* o, int B, int S, int H, int KV, int pos,
-                         int window, int ring, int n_ctas, int chunk,
-                         float scale, cudaStream_t stream) {
-  if (H / KV > MAX_GROUP) return cudaErrorInvalidValue;
+                         void* o, int B, int S, int H, int KV, int qg, int q0,
+                         int pos, int window, int ring, int n_ctas,
+                         int chunk, float scale, cudaStream_t stream) {
+  if (KV < 1 || H % KV || H / KV > MAX_GROUP || q0 < 0 ||
+      q0 + H / KV > qg)
+    return cudaErrorInvalidValue;
 #define K2_CASE(D)                                                        \
   case D:                                                                 \
-    return launch_k2<T, D>(q, k, v, o, B, S, H, KV, pos, window, ring,    \
-                           n_ctas, chunk, scale, stream);
+    return launch_k2<T, D>(q, k, v, o, B, S, H, KV, qg, q0, pos, window,  \
+                           ring, n_ctas, chunk, scale, stream);
   switch (dh) {
     K2_CASE(32)
     K2_CASE(64)
@@ -874,23 +878,28 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* ks,
 
 }  // namespace
 
-// K2. q (B, 1, H, dh); k/v (B, S, KV, dh) of q's type, 16-byte aligned;
-// o (B, 1, H, dh). dtype: 0 = f32, 1 = bf16. ring: 0 = full cache, 1 =
-// ring. n_ctas (1-8) CTAs per batch*kv-head row, one cluster, each over
-// chunk slots (n_ctas * chunk >= S); H / KV at most 8.
-extern "C" int decode_attention_fwd(const void* q, const void* k,
-                                    const void* v, void* o, int dtype, int B,
-                                    int S, int H, int KV, int dh, int pos,
-                                    int window, int ring, int n_ctas,
-                                    int chunk, float scale, void* stream) {
+// K2 over a sub-group of each kv head's query group: q and o (B, 1,
+// KV * qg, dh) hold qg query heads per kv head, and this launch attends
+// with heads q0 .. q0 + H / KV - 1 of each group (H / KV at most 8), in
+// place; qg = H / KV, q0 = 0 is the whole group. k/v (B, S, KV, dh) of q's type, 16-byte aligned. dtype: 0 = f32,
+// 1 = bf16. ring: 0 = full cache, 1 = ring. n_ctas (1-8) CTAs per
+// batch*kv-head row, one cluster, each over chunk slots (n_ctas * chunk
+// >= S).
+extern "C" int decode_attention_group_fwd(const void* q, const void* k,
+                                          const void* v, void* o, int dtype,
+                                          int B, int S, int H, int KV,
+                                          int qg, int q0, int dh, int pos,
+                                          int window, int ring, int n_ctas,
+                                          int chunk, float scale,
+                                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_k2_dh<float>(dh, q, k, v, o, B, S, H, KV, pos, window,
-                               ring, n_ctas, chunk, scale, st);
+    return launch_k2_dh<float>(dh, q, k, v, o, B, S, H, KV, qg, q0, pos,
+                               window, ring, n_ctas, chunk, scale, st);
   if (dtype == 1)
-    return launch_k2_dh<__nv_bfloat16>(dh, q, k, v, o, B, S, H, KV, pos,
-                                       window, ring, n_ctas, chunk, scale,
-                                       st);
+    return launch_k2_dh<__nv_bfloat16>(dh, q, k, v, o, B, S, H, KV, qg, q0,
+                                       pos, window, ring, n_ctas, chunk,
+                                       scale, st);
   return cudaErrorInvalidValue;
 }
 

@@ -28,7 +28,7 @@ _CTAS_PER_SM = 4         # K3: split-K target, this many CTAs per SM
 SLOT_TILE = 32           # K2: cache slots per warp tile, one per lane
 MAX_CLUSTER = 8          # K2: CTAs per cluster, the portable limit
 _K2_CTAS_PER_SM = 2      # K2: target CTAs per SM
-MAX_GROUP = 8            # K2: query heads per kv head, at most
+MAX_GROUP = 8            # K2: query heads per kv head in one launch
 
 
 def decode_attention_plain(q, cache_k, cache_v, pos, *, window: int = 0,
@@ -109,17 +109,33 @@ def cluster_plan(B: int, S: int, KV: int, sms: int):
     return math.ceil(S / chunk), chunk
 
 
+def sub_groups(G: int) -> int:
+    """The fewest sub-groups, each of at most ``MAX_GROUP`` query heads and
+    all of one size, that a kv head's group of G query heads splits into:
+    K2 launches once per sub-group (heads q0 .. q0 + G / n - 1 of every
+    group), reading q and writing the output in place."""
+    n = -(-G // MAX_GROUP)
+    while G % n:
+        n += 1
+    return n
+
+
 def _launch_k2(q, cache_k, cache_v, pos, window, ring):
     B, _, H, dh = q.shape
     S, KV = cache_k.shape[1], cache_k.shape[2]
+    G = H // KV
+    g = G // sub_groups(G)
     n_ctas, chunk = cluster_plan(B, S, KV, _sm_count(q.device.index))
     o = torch.empty_like(q)
-    fn = _build.entry("decode_attention", "decode_attention_fwd", 4, 11)
-    err = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-             o.data_ptr(), _build.DTYPES[q.dtype], B, S, H, KV, dh,
-             int(pos), int(window), int(ring), n_ctas, chunk, dh ** -0.5,
-             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "decode_attention_fwd")
+    fn = _build.entry("decode_attention", "decode_attention_group_fwd", 4, 13)
+    # one launch per sub-group of g query heads of each kv head's group,
+    # reading q and writing o in place
+    for q0 in range(0, G, g):
+        err = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
+                 o.data_ptr(), _build.DTYPES[q.dtype], B, S, KV * g, KV, G,
+                 q0, dh, int(pos), int(window), int(ring), n_ctas, chunk,
+                 dh ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, "decode_attention_group_fwd")
     return o
 
 
@@ -152,10 +168,6 @@ def decode_attention(q, cache_k, cache_v, pos, *, window: int = 0,
         return decode_attention_plain(q, cache_k, cache_v, pos,
                                       window=window, ring=ring)
     _check(q, cache_k, cache_v, None)
-    G = q.shape[2] // cache_k.shape[2]
-    if G > MAX_GROUP:
-        raise ValueError(f"decode_attention: {G} query heads per kv head; "
-                         f"the kernel takes at most {MAX_GROUP}")
     if any(t.data_ptr() % 16 for t in (q, cache_k, cache_v)):
         raise ValueError("decode_attention: q and the caches must be "
                          "16-byte aligned")

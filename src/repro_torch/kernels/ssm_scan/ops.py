@@ -13,6 +13,13 @@ in float32, with y returned in x's dtype, together with the final state.
 Without a state the scan starts from S = 0, as the Pallas kernel does. On
 a CUDA tensor ``ssm_scan`` launches the kernel of ``csrc/ssm_scan.cu``; on
 a CPU tensor it runs ``ssm_scan_plain``.
+
+The kernel has two paths, chosen by S (``uses_chunks``). Below one chunk
+(``CHUNK`` steps; decode is S = 1) it runs the recurrence step by step.
+From one chunk up it runs the chunked form of Mamba-2 (state-space
+duality), which ``ssm_scan_chunked_plain`` transcribes: within a chunk y
+is a masked matrix product, and only the state crosses chunks. Both paths
+compute ``ssm_scan_plain``'s function.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from repro_torch.models.ssm import _ssm_step
 
 STATE_SIZES = (8, 16)       # N, the kernel's instantiations
 HEAD_DIMS = (16, 32, 48, 64)   # P: a multiple of 16 up to 64
+CHUNK = 32                  # steps per chunk of the chunked path (csrc: CL)
 
 
 def ssm_scan_plain(x, dt, a_log, b, c, d_skip, state=None):
@@ -40,6 +48,51 @@ def ssm_scan_plain(x, dt, a_log, b, c, d_skip, state=None):
                                            c[:, t]), A)
     y = y + d_skip.float()[None, None, :, None] * xf
     return y.to(x.dtype), state
+
+
+def ssm_scan_chunked_plain(x, dt, a_log, b, c, d_skip, state=None,
+                           chunk=CHUNK):
+    """K5's chunked path in plain PyTorch, as the kernel computes it.
+
+    Per chunk and (batch, head), with cum_t the sum of dt_s A over the
+    chunk's steps up to t and S0 the state at its start:
+        y_t = sum_{s<=t} exp(cum_t - cum_s) (C_t . B_s) dt_s x_s
+              + exp(cum_t) S0 C_t + d_skip x_t
+        S   = exp(cum_L) S0 + sum_s exp(cum_L - cum_s) dt_s x_s B_s^T
+    The exponent is masked to s <= t before the exp. C B^T is one L x L
+    matrix per (batch, chunk), shared by every head."""
+    B, S, Hs, P = x.shape
+    N = b.shape[-1]
+    st = state if state is not None else \
+        torch.zeros(B, Hs, P, N, device=x.device)
+    A = -torch.exp(a_log.float())
+    xf = x.float()
+    y = torch.empty(B, S, Hs, P, device=x.device)
+    for t0 in range(0, S, chunk):
+        sl = slice(t0, min(S, t0 + chunk))
+        dtc = dt[:, sl].permute(0, 2, 1)                    # (B, Hs, L)
+        cum = torch.cumsum(dtc * A[:, None], -1)
+        L = cum.shape[-1]
+        causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
+        seg = (cum[..., :, None] - cum[..., None, :]).masked_fill(
+            ~causal, float("-inf"))
+        G = c[:, sl] @ b[:, sl].transpose(-1, -2)           # (B, L, L)
+        M = G[:, None] * torch.exp(seg) * dtc[..., None, :]
+        X = xf[:, sl].permute(0, 2, 1, 3)                   # (B, Hs, L, P)
+        yc = M @ X + torch.exp(cum)[..., None] * (
+            c[:, sl][:, None] @ st.transpose(-1, -2))
+        y[:, sl] = yc.permute(0, 2, 1, 3)
+        cL = cum[..., -1]
+        wdt = torch.exp(cL[..., None] - cum) * dtc
+        st = torch.exp(cL)[..., None, None] * st + \
+            (X * wdt[..., None]).transpose(-1, -2) @ b[:, sl][:, None]
+    y = y + d_skip.float()[None, None, :, None] * xf
+    return y.to(x.dtype), st
+
+
+def uses_chunks(S: int) -> bool:
+    """Whether the kernel takes its chunked path for S steps."""
+    return S >= CHUNK
 
 
 def _check(x, dt, a_log, b, c, d_skip, state) -> None:
@@ -90,13 +143,20 @@ def ssm_scan(x, dt, a_log, b, c, d_skip, state=None):
     N = b.shape[-1]
     y = torch.empty_like(x)
     final = torch.empty((B, Hs, P, N), dtype=torch.float32, device=x.device)
-    fn = _build.entry("ssm_scan", "ssm_scan_fwd", 9, 8, n_floats=0)
+    scratch = ()
+    if uses_chunks(S):
+        nc = -(-S // CHUNK)
+        # each chunk's state increment (then its start state) and decay
+        scratch = (torch.empty(B, Hs, nc, P, N, device=x.device),
+                   torch.empty(B, Hs, nc, device=x.device))
+    fn = _build.entry("ssm_scan", "ssm_scan_fwd", 11, 8, n_floats=0)
     err = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
              c.data_ptr(), d_skip.data_ptr(),
              state.data_ptr() if state is not None else None, y.data_ptr(),
-             final.data_ptr(), _build.DTYPES[x.dtype],
-             _build.DTYPES[a_log.dtype], B, S, Hs, P, N,
-             int(state is not None),
+             final.data_ptr(), *([t.data_ptr() for t in scratch]
+                                 or [None, None]),
+             _build.DTYPES[x.dtype], _build.DTYPES[a_log.dtype], B, S, Hs,
+             P, N, int(state is not None),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "ssm_scan")
     _build.count_launch(ssm_scan)

@@ -192,15 +192,40 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
                      device="cuda").transpose(1, 2)   # (1, 32, 2, 64)
     with pytest.raises(ValueError, match="contiguous"):
         dec.decode_attention(q, ck, ck, 3)
+    # a group of 9 query heads per kv head is computed, in sub-groups
     q = torch.randn(1, 1, 18, 64, generator=gen, device="cuda")
     ck = torch.randn(1, 32, 2, 64, generator=gen, device="cuda")
-    with pytest.raises(ValueError, match="at most 8"):
-        dec.decode_attention(q, ck, ck, 3)
+    assert _err(dec.decode_attention(q, ck, ck, 3),
+                dec.decode_attention_plain(q, ck, ck, 3)) < _tol(q.dtype)
     buf = torch.randn(1 + 64 * 4 * 64, generator=gen, device="cuda",
                       dtype=torch.bfloat16)
     x = buf[1:].view(1, 64, 4, 64)   # contiguous, 2 bytes past alignment
     with pytest.raises(ValueError, match="aligned"):
         fl.flash_attention(x, x, x)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,KV,dh,ring,pos", [
+    (32, 2, 128, False, 1039),   # chatglm3-6b decode: G 16
+    (18, 2, 64, True, 300),      # G 9: three sub-groups of 3
+    (24, 2, 32, False, 50),      # G 12: two sub-groups of 6
+    (32, 1, 64, True, 2000),     # G 32: four sub-groups of 8
+])
+def test_decode_k2_groups_above_8(gen, dtype, H, KV, dh, ring, pos):
+    """K2 takes at most 8 query heads per kv head a launch; the wrapper
+    runs a larger group in sub-groups, one launch each, and never raises
+    for a group that divides H."""
+    dt = getattr(torch, dtype)
+    B, S = 4, 1024
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda", dtype=dt)
+    q, ck, cv = r(B, 1, H, dh), r(B, S, KV, dh), r(B, S, KV, dh)
+    before = dec.decode_attention.launches
+    out = dec.decode_attention(q, ck, cv, pos, ring=ring)
+    ref = dec.decode_attention_plain(q, ck, cv, pos, ring=ring)
+    torch.cuda.synchronize()
+    assert dec.decode_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    assert _row_rel(out.float(), ref.float()) <= 2.0 ** -6
 
 
 def _row_rel(out, ref) -> float:
@@ -322,3 +347,130 @@ def test_ssm_wrapper_refuses_what_the_kernel_does_not_take(gen):
     x = args[0].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         k5.ssm_scan(x, *args[1:])
+
+
+def _kernel_names(fn):
+    """The CUDA kernels ``fn()`` launches, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return " ".join(e.key for e in prof.key_averages())
+
+
+def _mlstm_state(gen, kind, B, H, dh):
+    if kind == "omitted":
+        return None
+    if kind == "zero":
+        return (torch.zeros(B, H, dh, dh, device="cuda"),
+                torch.zeros(B, H, dh, device="cuda"),
+                torch.zeros(B, H, device="cuda"))
+    # a state the recurrence reached: the final state of a first scan
+    return k4.mlstm_scan_plain(*_scan_inputs(gen, B, 64, H, dh))[1]
+
+
+@pytest.mark.parametrize("dh", [64, 512])
+@pytest.mark.parametrize("state", ["omitted", "zero", "random"])
+@pytest.mark.parametrize("S", [k4.CHUNK - 1, k4.CHUNK, k4.CHUNK + 1,
+                               3 * k4.CHUNK + 5])
+def test_mlstm_kernel_chunk_edges(gen, dh, state, S):
+    """K4 around its chunk length (the step path below it, the chunkwise
+    path from it up) from the omitted, the model's zero and a reached
+    state."""
+    B, H = 2, 2
+    st = _mlstm_state(gen, state, B, H, dh)
+    args = _scan_inputs(gen, B, S, H, dh)
+    h, fin = k4.mlstm_scan(*args, st)
+    rh, rfin = k4.mlstm_scan_plain(*args, st)
+    torch.cuda.synchronize()
+    for name, a, b in zip("hCnm", (h,) + fin, (rh,) + rfin):
+        assert _row_rel(a, b) <= 1e-4, name
+
+
+def _tensor_rel(out, ref) -> float:
+    """max |out - ref| over max |ref| of the whole tensor."""
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("gates", ["forget_closed", "input_open"])
+def test_mlstm_kernel_gates_at_the_edges(gen, gates):
+    """Forget gates shut (fg - 30) and input gates wide open (ig + 30):
+    the chunk's decays underflow, and m follows ig. The state keeps the
+    row-relative measure; h is held relative to its largest value: with
+    the forget gates shut a row of h is v_t (q_t . k_t), and in the rows
+    where q_t . k_t is near 0 two f32 sums in different orders differ
+    by about 2^-24 sum_j |q_j k_j|, far more than 1e-4 of the row (the
+    step kernel and the plain version differ there too)."""
+    B, S, H, dh = 2, 3 * k4.CHUNK + 5, 2, 128
+    q, k, v, ig, fg = _scan_inputs(gen, B, S, H, dh)
+    if gates == "forget_closed":
+        fg = fg - 30.0
+    else:
+        ig = ig + 30.0
+    st = _mlstm_state(gen, "random", B, H, dh)
+    h, fin = k4.mlstm_scan(q, k, v, ig, fg, st)
+    rh, rfin = k4.mlstm_scan_plain(q, k, v, ig, fg, st)
+    torch.cuda.synchronize()
+    assert _tensor_rel(h, rh) <= 1e-4
+    for name, a, b in zip("Cnm", fin, rfin):
+        assert _row_rel(a, b) <= 1e-4, name
+
+
+def test_mlstm_dispatch_at_the_chunk_length(gen):
+    """Below ``CHUNK`` steps the step kernel runs, from it up the two
+    chunkwise kernels; the library's chunk is the wrapper's."""
+    from repro_torch.kernels import _build
+    assert _build.library("mlstm_scan").mlstm_scan_chunk() == k4.CHUNK
+    for S, chunked in [(1, False), (k4.CHUNK - 1, False), (k4.CHUNK, True)]:
+        args = _scan_inputs(gen, 1, S, 2, 64)
+        names = _kernel_names(lambda: k4.mlstm_scan(*args))
+        assert ("mlstm_chunk_state" in names) == chunked, names
+        assert ("mlstm_scan_kernel" in names) == (not chunked), names
+        assert k4.uses_chunks(S) == chunked
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("S", [k5.CHUNK - 1, k5.CHUNK, k5.CHUNK + 1,
+                               3 * k5.CHUNK + 5])
+def test_ssm_kernel_chunk_edges(gen, dtype, state, S):
+    """K5 around its chunk length (the step path below it, the chunked
+    path from it up), with every head of the CTAs' head groups (Hs 7) and
+    P 48, from the omitted and a reached state."""
+    dt = getattr(torch, dtype)
+    _check_ssm(gen, 2, S, 7, 48, 16, dt, dt, state)
+
+
+def test_ssm_kernel_decay_underflow(gen):
+    """dt scaled by 200 (x by 1 / 200): exp(dt A) and the chunk's
+    cumulated decays underflow to 0, and the masked exponents stay
+    masked. The state keeps the row-relative measure; y is held relative
+    to its largest value: with the history decayed away a row of y is
+    x_t (dt_t C_t . B_t + D), ill-conditioned where the two terms
+    cancel."""
+    f32 = torch.float32
+    x, dt, a_log, b, c, d_skip = _ssm_inputs(gen, 2, 101, 3, 64, 16, f32,
+                                             f32)
+    dt, x = dt * 200.0, x / 200.0
+    _, state = k5.ssm_scan_plain(*_ssm_inputs(gen, 2, 64, 3, 64, 16, f32,
+                                              f32))
+    y, fin = k5.ssm_scan(x, dt, a_log, b, c, d_skip, state)
+    ry, rfin = k5.ssm_scan_plain(x, dt, a_log, b, c, d_skip, state)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(fin).all()
+    assert _tensor_rel(y, ry) <= 1e-4 and _row_rel(fin, rfin) <= 1e-4
+
+
+def test_ssm_dispatch_at_the_chunk_length(gen):
+    """Below ``CHUNK`` steps the step kernel runs, from it up the three
+    chunked kernels; the library's chunk is the wrapper's."""
+    from repro_torch.kernels import _build
+    assert _build.library("ssm_scan").ssm_scan_chunk() == k5.CHUNK
+    f32 = torch.float32
+    for S, chunked in [(1, False), (k5.CHUNK - 1, False), (k5.CHUNK, True)]:
+        args = _ssm_inputs(gen, 1, S, 2, 32, 16, f32, f32)
+        names = _kernel_names(lambda: k5.ssm_scan(*args))
+        for kernel in ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out"):
+            assert (kernel in names) == chunked, names
+        assert ("ssm_scan_kernel" in names) == (not chunked), names
+        assert k5.uses_chunks(S) == chunked

@@ -302,3 +302,41 @@ def test_bridge_carries_hybrid_weights():
         a, t = host["layers"][name], params["layers"][name]
         assert t.dtype == torch.bfloat16 and tuple(t.shape) == a.shape
         assert np.array_equal(t.view(torch.int16).numpy(), a.view(np.int16))
+
+
+L = k5.CHUNK
+
+
+@pytest.mark.parametrize("dt_scale", [1.0, 200.0])
+@pytest.mark.parametrize("state", ["omitted", "zero", "random"])
+@pytest.mark.parametrize("S", [1, L - 1, L, L + 1, 3 * L + 5])
+def test_chunked_plain_matches_step_plain_and_model(S, state, dt_scale):
+    """The chunked (state-space duality) form the CUDA kernel runs from
+    one chunk up (``ssm_scan_chunked_plain``, chunks of ``CHUNK`` steps)
+    against the step loop and the model's ``_ssm_step`` under
+    ``jax.lax.scan`` plus the D skip, at lengths around the chunk edges,
+    from the omitted, a zero and a random state, and with dt scaled by 200
+    so that exp(dt A) and the chunk's cumulated decays underflow to 0 (x
+    scaled by 1 / 200 beside it, so that dt x and y stay of order 1 and
+    the absolute tolerance means what it means at dt scale 1)."""
+    B, Hs, P, N = 2, 3, 16, 8
+    x, dt, a_log, b, c, d_skip = _scan_inputs(13, B, S, Hs, P, N)
+    dt = (dt * dt_scale).astype(np.float32)
+    x = (x / dt_scale).astype(np.float32)
+    assert dt_scale == 1.0 or np.exp(dt * -np.exp(a_log)).min() == 0.0
+    st = {"omitted": None,
+          "zero": np.zeros((B, Hs, P, N), np.float32),
+          "random": np.random.default_rng(14).standard_normal(
+              (B, Hs, P, N)).astype(np.float32)}[state]
+    args = _torch(x, dt, a_log, b, c, d_skip)
+    ts = torch.from_numpy(st) if st is not None else None
+    y, fin = k5.ssm_scan_chunked_plain(*args, ts)
+    sy, sfin = k5.ssm_scan_plain(*args, ts)
+    ry, rfin = _model_scan(x, dt, a_log, b, c, d_skip,
+                           st if st is not None
+                           else np.zeros((B, Hs, P, N), np.float32))
+    assert torch.isfinite(y).all() and torch.isfinite(fin).all()
+    for a, s_, r in [(y, sy, ry), (fin, sfin, rfin)]:
+        assert _err(a, s_) < TOL
+        assert _err(a, r) < TOL
+    assert k5.uses_chunks(S) == (S >= L)

@@ -191,3 +191,44 @@ def test_k2_cluster_plan_at_serving_shapes():
     assert dec.cluster_plan(4, 1024, 5, 132) == (8, 128)
     # B*KV = 64 rows: 5 CTAs a row fill the card twice over
     assert dec.cluster_plan(8, 1024, 8, 132) == (5, 205)
+
+
+@pytest.mark.parametrize("G,n_sub", [(1, 1), (2, 1), (5, 1), (8, 1), (9, 3),
+                                     (11, 11), (12, 2), (16, 2), (32, 4)])
+def test_k2_sub_groups_cover_the_group(G, n_sub):
+    """K2 takes a group of at most MAX_GROUP query heads a launch; a larger
+    group splits into the fewest equal sub-groups that fit."""
+    assert dec.sub_groups(G) == n_sub
+    assert G % n_sub == 0 and G // n_sub <= dec.MAX_GROUP
+
+
+@pytest.mark.parametrize("B,S,H,KV,dh,window,ring,pos", [
+    (2, 64, 32, 2, 128, 0, False, 70),   # chatglm3-6b's heads, G 16
+    (1, 96, 18, 2, 64, 32, True, 150),   # G 9: three sub-groups of 3
+    (2, 48, 24, 2, 32, 0, True, 40),     # G 12: two sub-groups of 6
+    (2, 40, 16, 1, 64, 0, True, 90),     # G 16 over one kv head
+])
+def test_k2_sub_group_split_matches_pallas(B, S, H, KV, dh, window, ring,
+                                           pos):
+    """K2 runs a large group as ``sub_groups`` launches, launch i over
+    query heads kv * G + q0 .. kv * G + q0 + g - 1 of every kv head (q0 =
+    i * g), each attending as a group of g heads over the same cache. Those
+    launches, here each through the plain version on the gathered heads,
+    cover every head once and give the reference's decode attention over
+    the whole group."""
+    rng = np.random.default_rng(H + dh + pos)
+    q = _normal(rng, (B, 1, H, dh))
+    ck, cv = _normal(rng, (B, S, KV, dh)), _normal(rng, (B, S, KV, dh))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, ck, cv))
+    G = H // KV
+    g = G // dec.sub_groups(G)
+    assert g <= dec.MAX_GROUP
+    out = torch.full_like(tq, float("nan"))
+    for q0 in range(0, G, g):
+        heads = [kv * G + q0 + i for kv in range(KV) for i in range(g)]
+        out[:, :, heads] = dec.decode_attention_plain(
+            tq[:, :, heads].contiguous(), tk, tv, pos, window=window,
+            ring=ring)
+    assert not torch.isnan(out).any()
+    jargs = (jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), pos)
+    assert _diff(out, pallas_decode(*jargs, window=window, ring=ring)) < 2e-5

@@ -235,3 +235,49 @@ def test_bridge_carries_xlstm_weights():
         t = params["pairs"][name]
         assert t.dtype == torch.bfloat16 and tuple(t.shape) == a.shape
         assert np.array_equal(t.view(torch.int16).numpy(), a.view(np.int16))
+
+
+L = k4.CHUNK
+
+
+@pytest.mark.parametrize("gates", ["normal", "forget_closed", "input_open"])
+@pytest.mark.parametrize("state", ["omitted", "zero", "random"])
+@pytest.mark.parametrize("S", [1, L - 1, L, L + 1, 3 * L + 5])
+def test_chunked_plain_matches_step_plain_and_model(S, state, gates):
+    """The chunkwise form the CUDA kernel runs from one chunk up
+    (``mlstm_scan_chunked_plain``, chunks of ``CHUNK`` steps) against the
+    step loop and the model's ``_mlstm_step`` under ``jax.lax.scan``, at
+    lengths around the chunk edges, from the omitted (m = -1e30), the
+    model's zero (m = 0) and a random state, and with gates at the edges:
+    forget gates shut (fg - 30: every step forgets almost all) and input
+    gates wide open (ig + 30: m follows ig)."""
+    B, H, dh = 1, 2, 32
+    q, k, v, ig, fg = _scan_inputs(11, B, S, H, dh)
+    if gates == "forget_closed":
+        fg = fg - 30.0
+    elif gates == "input_open":
+        ig = ig + 30.0
+    rng = np.random.default_rng(12)
+    st = {"omitted": None,
+          "zero": (np.zeros((B, H, dh, dh), np.float32),
+                   np.zeros((B, H, dh), np.float32),
+                   np.zeros((B, H), np.float32)),
+          "random": (rng.standard_normal((B, H, dh, dh)).astype(np.float32)
+                     * 0.3,
+                     rng.standard_normal((B, H, dh)).astype(np.float32)
+                     * 0.3,
+                     rng.standard_normal((B, H)).astype(np.float32))}[state]
+    args = _torch(q, k, v, ig, fg)
+    ts = _torch(*st) if st is not None else None
+    out = k4.mlstm_scan_chunked_plain(*args, ts)
+    step = k4.mlstm_scan_plain(*args, ts)
+    empty = (np.zeros((B, H, dh, dh), np.float32),
+             np.zeros((B, H, dh), np.float32),
+             np.full((B, H), k4.NEG_INF, np.float32))
+    rh, rstate = _model_scan(q, k, v, ig, fg, st if st is not None
+                             else empty)
+    for name, a, b, c in zip(("h", "C", "n", "m"), (out[0],) + out[1],
+                             (step[0],) + step[1], (rh,) + tuple(rstate)):
+        assert _err(a, b) < TOL, name
+        assert _err(a, c) < TOL, name
+    assert k4.uses_chunks(S) == (S >= L)
