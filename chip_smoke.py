@@ -15,11 +15,12 @@ exits non-zero:
                full-width xlstm-350m, and K5 (the SSM scan) at those of
                full-width hymba-1.5b, the scans from the empty state,
                from a nonzero state (at S 1024 and at S 1000, off the
-               chunk) and for one decode step; K1 and K2 also at hymba's
-               heads (25 of dh 64 over 5 kv heads) with its window and
-               ring cache, and K2 at chatglm3-6b's (32 over 2 kv heads,
-               G 16); each held against its plain
-               PyTorch version; kernel, plain and library times, the
+               chunk) and for one decode step; K1, K2 and K3 also at
+               hymba's heads (25 of dh 64 over 5 kv heads) with its
+               window and ring cache, and K2 and K3 at chatglm3-6b's (32
+               over 2 kv heads, G 16); each held against its plain
+               PyTorch version (K3 also against the transcription of its
+               arithmetic); kernel, plain and library times, the
                card's bound for the same work, bound_frac (bound / kernel
                time) and vs_library (kernel / library time).
   4. model   — full-width qwen3-1.7b, xlstm-350m and hymba-1.5b (bf16,
@@ -36,7 +37,8 @@ exits non-zero:
                path's kernel launch counts are zeroed just before it and
                read just after; qwen's and hymba's must equal the counts
                computed from layers, requests and warm-ups. One warm
-               request of each path is profiled.
+               request of each path, and one of the kv_quant endpoint,
+               is profiled.
   6. the ``kernels`` line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
@@ -107,7 +109,7 @@ XLSTM_LAYERS = 8
 
 
 # chatglm3-6b's attention heads (the port serves no chatglm model yet):
-# G = 16 query heads per kv head, above K2's 8 a launch
+# G = 16 query heads per kv head, above the 8 a launch of K2 and K3
 GLM_HEADS = types.SimpleNamespace(n_heads=32, n_kv_heads=2, head_dim=128)
 
 
@@ -309,13 +311,27 @@ def check_flash(fl, cfg, dev, cases=FLASH_CASES, model="qwen3-1.7b"):
 
 DECODE_CASES = [("full", SERVE_SEQ + DECODE_STEPS - 1, False, 0),
                 ("ring", 3 * SERVE_SEQ + 17, True, 256)]
+# K3 at qwen3-1.7b's serving cache (a full cache, the query past its end)
+QUANT_CASES = DECODE_CASES[:1]
 
 
-def check_decode(dec, attn, cfg, dev, cases=DECODE_CASES, quant=True,
-                 model="qwen3-1.7b"):
+def n_valid_slots(attn, pos, S, ring, window, dev) -> int:
+    """The slots a query at ``pos`` attends to (the kernels' validity)."""
+    sp = (attn.ring_slot_positions(pos + 1, S, dev) if ring
+          else attn.full_slot_positions(pos, S, dev))
+    valid = (sp >= 0) & (sp <= pos)
+    if window:
+        valid &= sp > pos - window
+    return int(valid.sum())
+
+
+def check_decode(dec, attn, cfg, dev, cases=DECODE_CASES,
+                 quant_cases=QUANT_CASES, model="qwen3-1.7b"):
     """K2 on a full cache (query past its end, as serving decodes) and on
     a ring cache with pos > S (``cases``: (label, pos, ring, window)
-    each); K3 on the int8 full cache unless ``quant`` is False."""
+    each); K3 on the int8 cache at ``quant_cases`` (the same form), held
+    against its plain version and against the transcription of its
+    arithmetic. Returns the first case's numbers of each."""
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     B, S = SERVE_BATCH, SERVE_SEQ
     g = torch.Generator(dev).manual_seed(2)
@@ -336,12 +352,7 @@ def check_decode(dec, attn, cfg, dev, cases=DECODE_CASES, quant=True,
         kern, kern_host = device_ms(run, sets), host_ms(run, sets)
         plain = device_ms(lambda q, k, v: dec.decode_attention_plain(
             q, k, v, pos, window=window, ring=ring), sets, iters=8)
-        sp = (attn.ring_slot_positions(pos + 1, S, dev) if ring
-              else attn.full_slot_positions(pos, S, dev))
-        valid = (sp >= 0) & (sp <= pos)
-        if window:
-            valid &= sp > pos - window
-        n_valid = int(valid.sum())
+        n_valid = n_valid_slots(attn, pos, S, ring, window, dev)
         # the valid slots' K/V read once, q read and the output written
         kv_bytes = 2 * B * n_valid * KV * dh * ck.element_size()
         b_ms, b_by = bound_ms(kv_bytes + 2 * nbytes(q),
@@ -358,34 +369,42 @@ def check_decode(dec, attn, cfg, dev, cases=DECODE_CASES, quant=True,
              cache=label, B=B, S=S, H=H, KV=KV, dh=dh, pos=pos,
              window=window, valid_slots=n_valid, host_ms=kern_host, **m)
         out.setdefault("K2", m)
-    if not quant:
-        return out
 
     def mk8():
         q, ck, cv = mk()
         k8, ks = attn.quantize_kv(ck)
         v8, vs = attn.quantize_kv(cv)
         return q, k8, ks, v8, vs
-    pos = S + DECODE_STEPS - 1
-    q, k8, ks, v8, vs = mk8()
-    # K3 and its plain version both dequantize in f32 with q upcast; they
-    # differ only in summation order before the bf16 output rounding
-    err = check_kernel(
-        "K3", dec.decode_attention_quant(q, k8, ks, v8, vs, pos),
-        dec.decode_attention_quant_plain(q, k8, ks, v8, vs, pos),
-        cache="full int8")
-    sets = [mk8() for _ in range(n_sets(nbytes(q, k8, ks, v8, vs)))]
-    run = lambda *a: dec.decode_attention_quant(*a, pos)
-    kern, kern_host = device_ms(run, sets), host_ms(run, sets)
-    plain = device_ms(lambda *a: dec.decode_attention_quant_plain(*a, pos),
-                      sets, iters=8)
-    # all S slots valid: the int8 K/V and their scales read once
-    b_ms, b_by = bound_ms(nbytes(k8, ks, v8, vs) + 2 * nbytes(q),
-                          4 * B * H * dh * S)
-    out["K3"] = dict(**err, **timing(kern, plain, None, b_ms, b_by))
-    emit(phase="kernel", name="K3 decode_attention_quant", cache="full int8",
-         B=B, S=S, H=H, KV=KV, dh=dh, pos=pos, host_ms=kern_host,
-         **out["K3"])
+    for label, pos, ring, window in quant_cases:
+        kw = dict(window=window, ring=ring)
+        args = mk8()
+        o = dec.decode_attention_quant(*args, pos, **kw)
+        # the plain version dequantizes in f32 and keeps p in f32; the
+        # kernel rounds p times the v scale to bf16, as the transcription
+        # does
+        err = check_kernel("K3", o, dec.decode_attention_quant_plain(
+            *args, pos, **kw), cache=label)
+        as_kernel = check_kernel("K3 vs as_kernel", o,
+                                 dec.decode_attention_quant_as_kernel(
+                                     *args, pos, **kw), cache=label)
+        sets = [mk8() for _ in range(n_sets(nbytes(*args)))]
+        run = lambda *a: dec.decode_attention_quant(*a, pos, **kw)
+        kern, kern_host = device_ms(run, sets), host_ms(run, sets)
+        plain = device_ms(lambda *a: dec.decode_attention_quant_plain(
+            *a, pos, **kw), sets, iters=8)
+        n_valid = n_valid_slots(attn, pos, S, ring, window, dev)
+        # the valid slots' int8 K/V rows and their f32 scales read once, q
+        # read and the output written
+        kv_bytes = 2 * B * n_valid * KV * (dh + 4)
+        b_ms, b_by = bound_ms(kv_bytes + 2 * nbytes(args[0]),
+                              4 * B * H * dh * n_valid)
+        m = dict(**err, **timing(kern, plain, None, b_ms, b_by))
+        emit(phase="kernel", name="K3 decode_attention_quant", model=model,
+             cache=f"{label} int8", B=B, S=S, H=H, KV=KV, dh=dh, pos=pos,
+             window=window, valid_slots=n_valid,
+             launches_per_call=dec.sub_groups(H // KV), host_ms=kern_host,
+             row_rel_err_to_as_kernel=as_kernel["max_row_rel_err"], **m)
+        out.setdefault("K3", m)
     return out
 
 
@@ -897,15 +916,14 @@ def main() -> int:
     window = hcfg.sliding_window
     check_flash(fl, hcfg, dev, [(SERVE_BATCH, SERVE_SEQ, window)],
                 model="hymba-1.5b")
-    check_decode(dec, attn, hcfg, dev,
-                 [("ring", SERVE_SEQ + DECODE_STEPS - 1, True, window)],
-                 quant=False, model="hymba-1.5b")
-    # K2 at chatglm3-6b's decode heads (src/repro/configs/chatglm3_6b.py:
-    # 32 query heads over 2 kv heads of dh 128, G 16), which the wrapper
-    # runs as two launches of 8 query heads per kv head
-    check_decode(dec, attn, GLM_HEADS, dev,
-                 [("full", SERVE_SEQ + DECODE_STEPS - 1, False, 0)],
-                 quant=False, model="chatglm3-6b")
+    ring_case = [("ring", SERVE_SEQ + DECODE_STEPS - 1, True, window)]
+    check_decode(dec, attn, hcfg, dev, ring_case, ring_case,
+                 model="hymba-1.5b")
+    # K2 and K3 at chatglm3-6b's decode heads (src/repro/configs/
+    # chatglm3_6b.py: 32 query heads over 2 kv heads of dh 128, G 16),
+    # which the wrappers run as two launches of 8 query heads per kv head
+    check_decode(dec, attn, GLM_HEADS, dev, QUANT_CASES, QUANT_CASES,
+                 model="chatglm3-6b")
 
     model_phase(cfg, dev, "qwen3-1.7b")
     model_phase(xcfg, dev, "xlstm-350m")
@@ -953,6 +971,8 @@ def main() -> int:
 
     emit(phase="profile", endpoint="qwen-0", profiler_on=True,
          **profile_request(eps["qwen-0"]))
+    emit(phase="profile", endpoint="qwen-q8-0", profiler_on=True,
+         **profile_request(qep["qwen-q8-0"]))
     del eps, qep, res, qres
     torch.cuda.empty_cache()
 

@@ -1,13 +1,16 @@
-"""Time K1 (flash attention) and K2 (decode attention) of the PyTorch/CUDA
-port against variants of their own sources, on one NVIDIA GPU.
+"""Time K1 (flash attention), K2 (decode attention) and K3 (decode
+attention over an int8 cache) of the PyTorch/CUDA port against variants
+of their own sources, on one NVIDIA GPU.
 
     python3 scripts/attention_variants.py
 
 Each variant is the committed source (``src/repro_torch/csrc``) with one
 textual change, built by nvcc beside it into ``build/variants`` and timed
-on the same inputs in the same process as the committed kernel and as
-``scaled_dot_product_attention``, at the serving shapes of qwen3-1.7b and
-hymba-1.5b (``chip_smoke.py``'s kernel phase). It shows what each design
+on the same inputs in the same process as the committed kernel and (K1,
+K2) as ``scaled_dot_product_attention``, at the serving shapes of
+qwen3-1.7b and hymba-1.5b (``chip_smoke.py``'s kernel phase); K3 also at
+B 8 (B*KV = 64 rows) under K2's launch plan beside its own. K2 and K3 are
+one source, so K2's variants are K3's too. It shows what each design
 choice is worth; it also times empty kernel launches (plain, and in a
 cluster of 8 CTAs), the floor under any one-launch kernel. Prints one JSON
 line per shape and the card's name and power limit. Needs CUDA and nvcc.
@@ -30,6 +33,7 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dec  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fl  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
 
 OUT = ROOT / "build" / "variants"
 TILE = """  static constexpr int NW = 4;
@@ -51,6 +55,84 @@ K2_VARIANTS = {
     "no_tile_pass": [(TILE_PASS, "      (void)kt;")],
     "no_loads": [("    if (mask == 0) return;  // no valid slot: nothing read",
                   "    return;")],
+}
+Q8_PV = """#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const unsigned char* r0 = vt + (16 * kk + 2 * t) * RB + 4 * g;
+#pragma unroll
+      for (int blk = 0; blk < DH / 32; ++blk) {
+        const unsigned char* p = r0 + 32 * blk;
+        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p) ^ I8_BIAS;
+        const uint32_t w1 =
+            *reinterpret_cast<const uint32_t*>(p + RB) ^ I8_BIAS;
+        const uint32_t w8 =
+            *reinterpret_cast<const uint32_t*>(p + 8 * RB) ^ I8_BIAS;
+        const uint32_t w9 =
+            *reinterpret_cast<const uint32_t*>(p + 9 * RB) ^ I8_BIAS;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16_upper(acc[4 * blk + j], pa[kk][0], pa[kk][1],
+                         bf16x2_exact(i8_at(w0, j), i8_at(w1, j)),
+                         bf16x2_exact(i8_at(w8, j), i8_at(w9, j)));
+      }
+    }
+"""
+# the V tile converted once into a bf16 tile behind the scales (K2's
+# layout: dh >= 128 swizzled, else padded by 16 bytes), then P.V by
+# ldmatrix as K2's MmaPass reads its own
+Q8_PV_LDMATRIX = """    constexpr bool VSWZ = DH >= 128;
+    constexpr int VRB = DH * 2 + (VSWZ ? 0 : 16);
+    unsigned char* vb = const_cast<unsigned char*>(vt) + TS * RB +
+                        2 * TS * (int)sizeof(float);
+    auto vat = [](int r, int c) {
+      return r * VRB + (VSWZ ? swz<DH / 8>(r, c) : c) * 16;
+    };
+    for (int c = lane; c < TS * (DH / 16); c += 32) {
+      const int r = c / (DH / 16), cc = c % (DH / 16);
+      const uint4 w = *reinterpret_cast<const uint4*>(vt + r * RB + cc * 16);
+      const uint32_t ws[4] = {w.x ^ I8_BIAS, w.y ^ I8_BIAS, w.z ^ I8_BIAS,
+                              w.w ^ I8_BIAS};
+      uint32_t h[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        h[2 * i] = bf16x2_exact(i8_at(ws[i], 0), i8_at(ws[i], 1));
+        h[2 * i + 1] = bf16x2_exact(i8_at(ws[i], 2), i8_at(ws[i], 3));
+      }
+      *reinterpret_cast<uint4*>(vb + vat(r, 2 * cc)) =
+          make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(vb + vat(r, 2 * cc + 1)) =
+          make_uint4(h[4], h[5], h[6], h[7]);
+    }
+    __syncwarp();
+    const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int v_col = (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, smem_u32(vb + vat(kk * 16 + v_row, 2 * dp + v_col / 8)));
+        mma_bf16_upper(acc[2 * dp], pa[kk][0], pa[kk][1], bb[0], bb[1]);
+        mma_bf16_upper(acc[2 * dp + 1], pa[kk][0], pa[kk][1], bb[2], bb[3]);
+      }
+"""
+K3_VARIANTS = {
+    # P.V from a bf16 copy of the V tile, read by ldmatrix as K2 reads its
+    # own, in place of fragments built from 32-bit loads of the int8 tile
+    "v_ldmatrix": [
+        ("      2 * TS * RB + (Q8 ? 2 * TS * (int)sizeof(float) : 0);",
+         "      2 * TS * RB + (Q8 ? 2 * TS * (int)sizeof(float) : 0) +\n"
+         "      (Q8 && MMA ? TS * (DH * 2 + (DH >= 128 ? 0 : 16)) : 0);"),
+        (Q8_PV, Q8_PV_LDMATRIX),
+        ("      const int d = 32 * (j / 4) + 8 * t + (j % 4);\n"
+         "      wp[g * PS + d] = acc[j][0];\n"
+         "      wp[g * PS + d + 4] = acc[j][1];",
+         "      const int d = 8 * j + 2 * t;\n"
+         "      wp[g * PS + d] = acc[j][0];\n"
+         "      wp[g * PS + d + 1] = acc[j][1];")],
+    # int8 rows unpadded: every fragment load meets bank conflicts
+    "unpadded": [("RB = DH * (int)sizeof(C) + (SWZ ? 0 : 16);",
+                  "RB = DH * (int)sizeof(C) + (SWZ || (Q8 && MMA) ? 0 : 16);")],
 }
 FLOOR = r"""
 #include <cooperative_groups.h>
@@ -154,17 +236,51 @@ def decode_runner(lib):
     return run
 
 
-def time_all(runs, sets, ref, library, lib_sets):
-    """{name: [ms, max row-relative error]} in turns: library, every
+def quant_runner(lib, plan=dec.quant_plan):
+    fn = lib.decode_attention_q8_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
+                   + [ctypes.c_float, ctypes.c_void_p])
+
+    def run(q, k8, ks, v8, vs, pos, window, ring):
+        B, _, H, dh = q.shape
+        S, KV = k8.shape[1], k8.shape[2]
+        n, chunk = plan(B, S, KV, dec._sm_count(q.device.index))
+        o = torch.empty_like(q)
+        _build.check(fn(q.data_ptr(), k8.data_ptr(), ks.data_ptr(),
+                        v8.data_ptr(), vs.data_ptr(), o.data_ptr(), 1, B, S,
+                        H, KV, H // KV, 0, dh, pos, window, int(ring), n,
+                        chunk, dh ** -0.5, stream()), "quant variant")
+        return o
+    return run
+
+
+def time_all(runs, sets, ref, library=None, lib_sets=None):
+    """{name: [ms, ms, max row-relative error]} in turns: library, every
     kernel, then every kernel and the library again in reverse."""
     out = {name: [] for name in runs}
-    out["sdpa"] = [cs.device_ms(library, lib_sets)]
+    if library is not None:
+        out["sdpa"] = [cs.device_ms(library, lib_sets)]
     for name, run in list(runs.items()) + list(runs.items())[::-1]:
         out[name].append(cs.device_ms(run, sets))
-    out["sdpa"].append(cs.device_ms(library, lib_sets))
+    if library is not None:
+        out["sdpa"].append(cs.device_ms(library, lib_sets))
     for name, run in runs.items():
         out[name].append(cs.row_rel_err(run(*sets[0]), ref))
     return out
+
+
+def quant_sets(g, B, S, H, KV, dh):
+    """Input sets for K3 (q, int8 k, k scales, int8 v, v scales), more
+    bytes in all than the L2 cache holds."""
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+
+    def mk():
+        k8, ks = attn.quantize_kv(r(B, S, KV, dh))
+        v8, vs = attn.quantize_kv(r(B, S, KV, dh))
+        return r(B, 1, H, dh).to(torch.bfloat16), k8, ks, v8, vs
+    first = mk()
+    return [first] + [mk() for _ in range(cs.n_sets(cs.nbytes(*first)) - 1)]
 
 
 def main() -> int:
@@ -183,6 +299,9 @@ def main() -> int:
                   **{f"k2_{n}": t for n, t in variants(
                       "src/repro_torch/csrc/decode_attention.cu",
                       K2_VARIANTS).items()},
+                  **{f"k3_{n}": t for n, t in variants(
+                      "src/repro_torch/csrc/decode_attention.cu",
+                      K3_VARIANTS).items()},
                   "floor": FLOOR})
     g = torch.Generator("cuda").manual_seed(1)
     bf = torch.bfloat16
@@ -223,6 +342,25 @@ def main() -> int:
         print(json.dumps(dict(kernel="K2", model=model, B=B, S=S, H=H,
                               KV=KV, dh=dh, pos=pos, window=window,
                               ms_ms_err=res)), flush=True)
+
+        # K3: the committed kernel (lib "k2"), K2's variants and its own;
+        # at B 8 also under K2's launch plan
+        q8_libs = {n.replace("k2", "k3", 1): lib for n, lib in libs.items()
+                   if n.startswith(("k2", "k3"))}
+        for qB in (B, 8) if model == "qwen3-1.7b" else (B,):
+            sets = quant_sets(g, qB, S, H, KV, dh)
+            ref = dec.decode_attention_quant_plain(*sets[0], pos,
+                                                   window=window, ring=ring)
+            runs = {n: (lambda r_: lambda *a: r_(*a, pos, window, ring))(
+                quant_runner(lib)) for n, lib in q8_libs.items()}
+            if qB != B:
+                runs = {"k3": runs["k3"], "k3_k2_plan": (
+                    lambda r_: lambda *a: r_(*a, pos, window, ring))(
+                        quant_runner(libs["k2"], dec.cluster_plan))}
+            res = time_all(runs, sets, ref)
+            print(json.dumps(dict(kernel="K3", model=model, B=qB, S=S, H=H,
+                                  KV=KV, dh=dh, pos=pos, window=window,
+                                  ms_ms_err=res)), flush=True)
 
     fn = libs["floor"].launch_empty
     fn.restype = ctypes.c_int

@@ -28,36 +28,61 @@
 // row once for the G query heads that share it. Masking and the final
 // acc / max(l, 1e-30) follow the reference.
 //
-// K2, decode_cluster: one launch. A thread-block cluster of up to 8 CTAs
-// per (batch, kv head) row; each CTA takes a contiguous chunk of slots and
-// each of its warps tiles of 32 slots. A warp copies a tile's K and V rows
-// into its own shared-memory ring with 16-byte cp.async (two stages when
-// it has more than one tile, so that the next tile is in flight) before q
-// is read, and rescales its online softmax once per tile. bf16 computes a
-// tile on the tensor cores: the G query rows are the rows of a 16-row
-// mma.sync m16n8k16 tile, S = Q K^T and P.V take their operands from
-// shared memory by ldmatrix, scores and p stay in registers. f32 computes
-// it on the CUDA cores (TF32 would not hold the f32 tolerance): a lane owns
-// a slot's dot products with the G query rows, p goes through shared
-// memory to P.V, where a lane owns dh/32 output columns. Both round p to
-// the cache type for P.V and sum the f32 p into l. The warps' (m, l, acc)
-// merge in the CTA; each CTA writes its merged partial into the shared
-// memory of every CTA of the cluster (distributed shared memory), and
-// after one cluster barrier each rank merges the ranks' partials of an
-// n_ranks-th of the outputs, normalises and writes them. A warp, CTA
-// or rank with no valid slot merges as (m = -1e30, l = 0, acc = 0), which
-// adds nothing and no NaN. A group of more than 8 query heads per kv head
-// runs as several launches, each over an equal sub-group of at most 8
-// heads, reading q and writing o in place (decode_attention_group_fwd).
+// K2 and K3 are one kernel, decode_cluster, over the cache's element type:
+// one launch. A thread-block cluster of up to 8 CTAs per (batch, kv head)
+// row; each CTA takes a contiguous chunk of slots and each of its warps
+// tiles of 32 slots. A warp copies a tile's K and V rows (and, for K3, the
+// tile's 32 k and 32 v scales, each lane its own slot's) into its own
+// shared-memory ring with cp.async (two stages when it has more than one
+// tile, so that the next tile is in flight) before q is read, and rescales
+// its online softmax once per tile. The warps' (m, l, acc) merge in the
+// CTA; each CTA writes its merged partial into the shared memory of every
+// CTA of the cluster (distributed shared memory), and after one cluster
+// barrier each rank merges the ranks' partials of an n_ranks-th of the
+// outputs, normalises and writes them. A warp, CTA or rank with no valid
+// slot merges as (m = -1e30, l = 0, acc = 0), which adds nothing and no
+// NaN. A group of more than 8 query heads per kv head runs as several
+// launches, each over an equal sub-group of at most 8 heads, reading q and
+// writing o in place.
 //
-// K3, decode_split + decode_combine: a CTA of four warps per (slot chunk,
-// batch*kv-head row); each warp runs its own online softmax over every
-// fourth slot of the chunk for all G query heads at once, a lane holding
-// dh/32 contiguous elements. The four warps' (m, l, acc) merge in shared
-// memory into one partial per chunk; a second small kernel merges the
-// chunks' partials and normalises. K3 dequantizes int8 with its scale in
-// registers, upcasts q to f32 and keeps p in f32 for p @ V, as the Pallas
-// kernel does.
+// K2, bf16 (MmaPass): the tile on the tensor cores. The G query rows are
+// the rows of a 16-row mma.sync m16n8k16 tile, S = Q K^T and P.V take
+// their operands from shared memory by ldmatrix, scores and p stay in
+// registers; p is rounded to bf16 for P.V and the f32 p summed into l.
+//
+// K3, bf16 (Q8MmaPass): the same tile pass over int8 rows, on the tensor
+// cores, with no dequantised copy of the tile. An int8 value is exact in
+// bf16 (|x| <= 127 needs 7 significant bits of bf16's 8) and a bf16 q is
+// exact, so S = Q K8^T accumulated in f32 equals the f32-dequantised dot
+// up to summation order; each score column is then multiplied by its
+// slot's k scale and dh^-0.5 in f32, before masking and the online
+// softmax. For P.V, p times the slot's v scale is rounded to bf16 against
+// V8 in bf16, and l sums the unrounded f32 p: K2's rounding of p, and the
+// reference model's own kv_quant arithmetic, which dequantises the cache
+// to the compute type and rounds p to it (src/repro/models/
+// transformer.py, decode; ref.py::decode_attention_q8_ref). Fragments are
+// built from int8 in registers: a byte becomes a float by a byte permute
+// onto 2^23 and one subtraction, and two such floats a bf16x2 by taking
+// their high halves. S = Q K8^T runs the k dimension of each 16-wide
+// k-step in an order of its own, the same for q and k (the dot does not
+// depend on it): lane t's two B registers are bytes 4t..4t+3 of the slot's
+// row, one 32-bit load. For P.V each B register holds two slots at one
+// d; a lane loads 4 bytes of each of its 4 slot rows (32-bit loads) and
+// takes byte j of them for the j-th of 4 output n-tiles, so column n of
+// n-tile 4 blk + j is output column 32 blk + 4 n + j (converting the V
+// tile into a bf16 copy read by ldmatrix, as K2 reads its own, measured
+// slower: scripts/attention_variants.py). The
+// query rows are the upper half of the m16n8k16 tile only (G <= 8): the
+// lower half of A is zero and its accumulators are dropped. Rows are
+// padded by 16 bytes, which keeps every one of these loads free of bank
+// conflicts at each head dim.
+//
+// f32 (SimtPass), K2 and K3: on the CUDA cores (TF32 would not hold the
+// f32 tolerance). A lane owns a slot's dot products with the G query
+// rows, p goes through shared memory to P.V, where a lane owns dh/32
+// output columns. K2 keeps p as it is (the cache type is f32); K3
+// converts int8 to f32 in registers, multiplies the scores by the k
+// scale, and keeps p times the v scale in f32.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -75,15 +100,9 @@ using namespace repro_sm90;
 
 namespace cg = cooperative_groups;
 
-constexpr int NW = 4;         // warps per K3 CTA
-constexpr int NT = NW * 32;   // threads per K3 CTA
 constexpr float NEG_INF = -1e30f;
 constexpr int MAX_DEVICES = 64;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -133,7 +152,14 @@ cudaError_t allow_optin_smem() {
   return result[dev];
 }
 
-// --- K2 ---------------------------------------------------------------------
+// 4 bytes global -> shared (cp.async takes 4 bytes only as .ca); with ok
+// false nothing is read and the 4 bytes are zero-filled.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
 
 using bf16 = __nv_bfloat16;
 
@@ -143,30 +169,38 @@ constexpr int MAX_GROUP = 8;      // query heads per kv head
 constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory per CTA
 constexpr float LOG2E = 1.4426950408889634f;
 
-// K2's shape per element type and head dim: bf16 runs the tile pass on the
-// tensor cores (MMA), f32 on the CUDA cores with GM = 8 query rows in
-// registers (rows past G zero; f32 is off the serving path, so one
-// instance serves every G <= 8); warps per CTA
-// (two where a tile of 32 f32 rows of dh 256 would not fit four times
-// over). Tiles keep ldmatrix's eight rows (bf16) or 32 lanes each reading
-// its own row (f32) in distinct bank groups: bf16 rows of dh >= 128 are
-// unpadded with their 16-byte chunks swizzled (chunk c of row r at
-// c ^ (r & 7)), so that 3 CTAs fit on an SM at qwen3-1.7b's shapes; other
-// rows are padded by 16 bytes, which measured faster at dh 64. Shared
-// memory, from its start: q (G bf16 rows and a zero row, or GM f32 rows),
-// the p of each warp's tile (f32 only), the cluster's gather slots (every
-// rank's G partials), then each warp's ring of n_stages tiles.
-template <typename T, int DH>
-struct K2Shape {
+// The kernel's shape per q/output type T, cache element type C (T for K2,
+// int8 for K3) and head dim: bf16 q runs the tile pass on the tensor cores
+// (MMA), f32 on the CUDA cores with GM = 8 query rows in registers (rows
+// past G zero; f32 is off the serving path, so one instance serves every
+// G <= 8); warps per CTA (two where a tile of 32 f32 rows of dh 256 would
+// not fit four times over). K2's bf16 tiles keep ldmatrix's eight rows in
+// distinct bank groups: rows of dh >= 128 are unpadded with their 16-byte
+// chunks swizzled (chunk c of row r at c ^ (r & 7)), so that 3 CTAs fit
+// on an SM at qwen3-1.7b's shapes; other rows, and every int8 row, are
+// padded by 16 bytes (at dh 64 that measured faster for K2). A K3 stage
+// ends with its tile's 32 k scales and 32 v scales. Shared memory, from
+// its start: q (K2 bf16: G rows at stride RB and a zero row; K3 bf16: G
+// rows of dh; f32: GM rows), the p of each warp's tile (f32 only), the
+// cluster's gather slots (every rank's G partials), then each warp's ring
+// of n_stages tiles.
+template <typename T, typename C, int DH>
+struct Shape {
+  static constexpr bool Q8 = std::is_same<C, int8_t>::value;
   static constexpr bool MMA = std::is_same<T, bf16>::value;
   static constexpr int GM = MAX_GROUP;
-  static constexpr int NW = DH * sizeof(T) >= 1024 ? 2 : 4;
-  static constexpr bool SWZ = MMA && DH >= 128;
-  static constexpr int RB = DH * (int)sizeof(T) + (SWZ ? 0 : 16);
-  static constexpr int STAGE = 2 * TS * RB;  // one tile's K and V
-  static constexpr int PS = DH + 2;          // a partial: acc, m, l
+  static constexpr int NW = DH * sizeof(C) >= 1024 ? 2 : 4;
+  static constexpr bool SWZ = MMA && !Q8 && DH >= 128;
+  static constexpr int RB = DH * (int)sizeof(C) + (SWZ ? 0 : 16);
+  static constexpr int STAGE =
+      2 * TS * RB + (Q8 ? 2 * TS * (int)sizeof(float) : 0);
+  static constexpr int PS = DH + 2;  // a partial: acc, m, l
+  static constexpr int QRB = MMA ? (Q8 ? DH * 2 : RB) : DH * 4;
+  __host__ __device__ static constexpr int q_rows(int G) {
+    return MMA ? (Q8 ? G : G + 1) : GM;
+  }
   __host__ __device__ static constexpr size_t q_bytes(int G) {
-    return MMA ? (size_t)(G + 1) * RB : sizeof(float) * GM * DH;
+    return (size_t)q_rows(G) * QRB;
   }
   __host__ __device__ static constexpr size_t p_bytes() {
     return MMA ? 0 : sizeof(float) * NW * GM * TS;
@@ -177,8 +211,8 @@ struct K2Shape {
   }
 };
 
-// N values of T from shared memory at p (aligned to their size, up to 16
-// bytes), as floats
+// N values of T (f32, bf16 or int8) from shared memory at p (aligned to
+// their size, up to 16 bytes), as floats
 template <typename T, int N>
 __device__ __forceinline__ void load_f(const unsigned char* p,
                                        float (&out)[N]) {
@@ -199,16 +233,20 @@ __device__ __forceinline__ void load_f(const unsigned char* p,
     w[1] = u.y;
   } else if constexpr (BYTES == 4) {
     w[0] = *reinterpret_cast<const uint32_t*>(p);
-  } else {
+  } else if constexpr (BYTES == 2) {
     w[0] = *reinterpret_cast<const unsigned short*>(p);
+  } else {
+    w[0] = *p;
   }
 #pragma unroll
   for (int i = 0; i < N; ++i) {
     if constexpr (sizeof(T) == 4)
       out[i] = __uint_as_float(w[i]);
-    else  // bf16: element 2j is the low half of word j
+    else if constexpr (sizeof(T) == 2)  // element 2j: the low half of word j
       out[i] = __uint_as_float((i & 1) ? (w[i / 2] & 0xffff0000u)
                                        : (w[i / 2] << 16));
+    else  // int8: byte i % 4 of word i / 4, sign-extended
+      out[i] = (float)((int)(w[i / 4] << (24 - 8 * (i % 4))) >> 24);
   }
 }
 
@@ -218,7 +256,7 @@ __device__ __forceinline__ int swz(int r, int c) {
   return c ^ (r & (CPR >= 8 ? 7 : CPR - 1));
 }
 
-// A warp's pass over its tiles on the tensor cores (bf16). The G query
+// A warp's pass over its tiles on the tensor cores (K2, bf16). The G query
 // rows are the first rows of a 16-row m-tile (the rest zero); the 32
 // slots of a tile are four 8-slot n-tiles, so S = Q K^T is KD x 4 mmas and
 // P.V 2 x DH/8. Each thread holds rows g and g + 8 of every fragment. Q's
@@ -358,15 +396,189 @@ struct MmaPass {
   }
 };
 
-// A warp's pass over its tiles on the CUDA cores (f32). A lane owns one
-// slot for the scores (its K row against the GM query rows, read as
-// broadcasts from shared memory, four partial sums per row) and DH/32
-// output columns for P.V; one online-softmax rescale per tile.
-template <typename T, int DH, int GM>
+// int8 -> bf16 fragments. A word of 4 int8 values XOR 0x80808080 holds
+// each x as x + 128 unsigned; byte i of it permuted under 2^23 gives the
+// float 2^23 + x + 128, and one subtraction x exactly.
+constexpr uint32_t I8_BIAS = 0x80808080u;
+constexpr uint32_t F32_2P23 = 0x4b000000u;  // 2^23
+constexpr float I8_MAGIC = 8388736.f;       // 2^23 + 128
+
+// byte i (0-3) of a biased int8 word, as a float
+__device__ __forceinline__ float i8_at(uint32_t biased, int i) {
+  return __uint_as_float(__byte_perm(biased, F32_2P23, 0x7650 + i)) -
+         I8_MAGIC;
+}
+
+// two floats of at most 8 significant bits (int8 values) as bf16x2, lo in
+// the low half: their high halves, exactly
+__device__ __forceinline__ uint32_t bf16x2_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// c (rows g of an m16n8 f32 tile: columns 2t, 2t + 1) += A B with A's rows
+// g + 8 zero: a0 = A[g][2t, 2t + 1], a2 = A[g][2t + 8, 2t + 9]. The
+// m16n8k16 bf16 mma, the accumulators of the zero rows dropped.
+__device__ __forceinline__ void mma_bf16_upper(float (&c)[2], uint32_t a0,
+                                               uint32_t a2, uint32_t b0,
+                                               uint32_t b1) {
+  float d2, d3;
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%10,%11};\n"
+      : "+f"(c[0]), "+f"(c[1]), "=f"(d2), "=f"(d3)
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1), "f"(0.f),
+        "f"(0.f));
+}
+
+// A warp's pass over its int8 tiles on the tensor cores (K3, bf16 q). The
+// G query rows are rows g < G of the upper half of a 16-row m-tile; a
+// thread holds one query row (g = lane / 4) and, of each 8-slot n-tile,
+// slots 2t and 2t + 1 (t = lane % 4). S = Q K8^T is KD x 4 mmas: in k-step
+// kk, q's A registers are q[g][16kk + 4t .. 16kk + 4t + 3] (one 64-bit
+// load, once) and k's B registers bytes 16kk + 4t .. + 3 of slot row
+// 8j + g (one 32-bit load). P.V is 2 x DH/8 mmas: in k-step kk (slots
+// 16kk .. 16kk + 15) and 32-wide block blk, a thread loads bytes
+// 32blk + 4g .. + 3 of slot rows 16kk + 2t, + 1, + 8 and + 9, and byte j of
+// them is B of n-tile 4blk + j; so accumulator (j, e) of block blk is
+// output column 32blk + 8t + 4e + j.
+template <int DH, int RB>
+struct Q8MmaPass {
+  static constexpr int KD = DH / 16, ND = DH / 8, PS = DH + 2;
+  uint32_t qf[KD][2];
+  float acc[ND][2];
+  float m, l;  // running max (log2 units), this thread's row sum
+
+  // q rows 0..G-1 of shared memory (bf16, DH a row); rows past G zero
+  __device__ __forceinline__ void init(const unsigned char* qsm, int G,
+                                       int lane) {
+    const int g = lane / 4, t = lane % 4;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint2 w = make_uint2(0u, 0u);
+      if (g < G)
+        w = *reinterpret_cast<const uint2*>(qsm +
+                                            (g * DH + 16 * kk + 4 * t) * 2);
+      qf[kk][0] = w.x;
+      qf[kk][1] = w.y;
+    }
+#pragma unroll
+    for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = 0.f;
+    m = NEG_INF;
+    l = 0.f;
+  }
+
+  // mask: bit i set iff slot i of the tile is valid; the tile's k scales
+  // and v scales follow its V rows
+  __device__ __forceinline__ void tile(const unsigned char* kt,
+                                       const unsigned char* vt, unsigned mask,
+                                       float scale_log2, const unsigned char*,
+                                       float*, int lane) {
+    const int g = lane / 4, t = lane % 4;
+    const float* sc = reinterpret_cast<const float*>(vt + TS * RB);
+    float s[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+                               kt + (8 * j + g) * RB + 16 * kk + 4 * t) ^
+                           I8_BIAS;
+        mma_bf16_upper(s[j], qf[kk][0], qf[kk][1],
+                       bf16x2_exact(i8_at(w, 0), i8_at(w, 1)),
+                       bf16x2_exact(i8_at(w, 2), i8_at(w, 3)));
+      }
+    // score (j, e) is slot 8j + 2t + e: its k scale, then the mask
+    float mx = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 ks = *reinterpret_cast<const float2*>(sc + 8 * j + 2 * t);
+      const unsigned ok = mask >> (8 * j + 2 * t);
+      s[j][0] = (ok & 1u) ? s[j][0] * (ks.x * scale_log2) : NEG_INF;
+      s[j][1] = (ok & 2u) ? s[j][1] * (ks.y * scale_log2) : NEG_INF;
+      mx = fmaxf(mx, fmaxf(s[j][0], s[j][1]));
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m, mx);
+    const float alpha = ex2(m - m_new);
+    m = m_new;
+    l *= alpha;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      acc[j][0] *= alpha;
+      acc[j][1] *= alpha;
+    }
+    // p in f32 into l (0 for an invalid slot); p times the slot's v scale
+    // rounded to bf16 into P.V's A registers: k-step kk's a0 is n-tile
+    // 2kk, its a2 n-tile 2kk + 1
+    uint32_t pa[2][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 vs =
+          *reinterpret_cast<const float2*>(sc + TS + 8 * j + 2 * t);
+      const unsigned ok = mask >> (8 * j + 2 * t);
+      const float p0 = (ok & 1u) ? ex2(s[j][0] - m) : 0.f;
+      const float p1 = (ok & 2u) ? ex2(s[j][1] - m) : 0.f;
+      l += p0 + p1;
+      pa[j / 2][j & 1] = pack_bf16(p0 * vs.x, p1 * vs.y);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const unsigned char* r0 = vt + (16 * kk + 2 * t) * RB + 4 * g;
+#pragma unroll
+      for (int blk = 0; blk < DH / 32; ++blk) {
+        const unsigned char* p = r0 + 32 * blk;
+        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p) ^ I8_BIAS;
+        const uint32_t w1 =
+            *reinterpret_cast<const uint32_t*>(p + RB) ^ I8_BIAS;
+        const uint32_t w8 =
+            *reinterpret_cast<const uint32_t*>(p + 8 * RB) ^ I8_BIAS;
+        const uint32_t w9 =
+            *reinterpret_cast<const uint32_t*>(p + 9 * RB) ^ I8_BIAS;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_bf16_upper(acc[4 * blk + j], pa[kk][0], pa[kk][1],
+                         bf16x2_exact(i8_at(w0, j), i8_at(w1, j)),
+                         bf16x2_exact(i8_at(w8, j), i8_at(w9, j)));
+      }
+    }
+  }
+
+  // the warp's (acc, m, l) of query rows below G into wp (G x PS)
+  __device__ __forceinline__ void flush(float* wp, int G, int lane) {
+    const int g = lane / 4, t = lane % 4;
+    float lr = l;
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    if (g >= G) return;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      const int d = 32 * (j / 4) + 8 * t + (j % 4);
+      wp[g * PS + d] = acc[j][0];
+      wp[g * PS + d + 4] = acc[j][1];
+    }
+    if (t == 0) {
+      wp[g * PS + DH] = m;
+      wp[g * PS + DH + 1] = lr;
+    }
+  }
+};
+
+// A warp's pass over its tiles on the CUDA cores (f32 q; C is the cache's
+// element type, f32 for K2, int8 for K3). A lane owns one slot for the
+// scores (its K row against the GM query rows, read as broadcasts from
+// shared memory, four partial sums per row) and DH/32 output columns for
+// P.V; one online-softmax rescale per tile. K3's int8 values become floats
+// in registers; a lane's score takes its slot's k scale, and p its slot's
+// v scale, in f32.
+template <typename C, int DH, int GM>
 struct SimtPass {
-  static constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16 bytes
+  static constexpr bool Q8 = std::is_same<C, int8_t>::value;
+  static constexpr int EPC = 16 / (int)sizeof(C);  // elements per 16 bytes
   static constexpr int CPR = DH / EPC;             // 16-byte chunks per row
-  static constexpr int RB = DH * (int)sizeof(T) + 16;
+  static constexpr int RB = DH * (int)sizeof(C) + 16;
   static constexpr int E = DH / 32;                // output columns per lane
   static constexpr int PS = DH + 2;
   float m[GM], lsum[GM], acc[GM][E];
@@ -387,6 +599,7 @@ struct SimtPass {
                                        const unsigned char* qsm, float* pw,
                                        int lane) {
     const float* qs = reinterpret_cast<const float*>(qsm);
+    const float* sc = reinterpret_cast<const float*>(vt + TS * RB);  // K3
     const bool ok = (mask >> lane) & 1u;
     float s[GM][4];
 #pragma unroll
@@ -396,7 +609,7 @@ struct SimtPass {
 #pragma unroll 4
     for (int c = 0; c < CPR; ++c) {
       float kf[EPC];
-      load_f<T, EPC>(kt + lane * RB + c * 16, kf);
+      load_f<C, EPC>(kt + lane * RB + c * 16, kf);
 #pragma unroll
       for (int g = 0; g < GM; ++g) {
         const float4* qv =
@@ -411,10 +624,15 @@ struct SimtPass {
         }
       }
     }
+    float ksl = scale_log2, vsc = 1.f;
+    if constexpr (Q8) {
+      ksl *= sc[lane];
+      vsc = sc[TS + lane];
+    }
 #pragma unroll
     for (int g = 0; g < GM; ++g) {
       const float dot = (s[g][0] + s[g][1]) + (s[g][2] + s[g][3]);
-      const float x = ok ? dot * scale_log2 : NEG_INF;
+      const float x = ok ? dot * ksl : NEG_INF;
       float mt = x;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -426,10 +644,10 @@ struct SimtPass {
       lsum[g] = lsum[g] * alpha + p;
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
-      pw[g * TS + lane] = to_f(from_f<T>(p));  // p in the cache type
+      pw[g * TS + lane] = Q8 ? p * vsc : p;  // K2: p in the (f32) cache type
     }
     __syncwarp();
-    const unsigned char* vcol = vt + lane * E * (int)sizeof(T);
+    const unsigned char* vcol = vt + lane * E * (int)sizeof(C);
 #pragma unroll 2
     for (int j4 = 0; j4 < TS / 4; ++j4) {
       float pp[GM][4];
@@ -444,7 +662,7 @@ struct SimtPass {
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         float vf[E];
-        load_f<T, E>(vcol + (4 * j4 + jj) * RB, vf);
+        load_f<C, E>(vcol + (4 * j4 + jj) * RB, vf);
 #pragma unroll
         for (int g = 0; g < GM; ++g)
 #pragma unroll
@@ -471,18 +689,23 @@ struct SimtPass {
 
 // One cluster of gridDim.x CTAs per batch*kv-head row (blockIdx.y); CTA
 // rank r takes slots [r * chunk, (r + 1) * chunk). n_stages: 2 if a warp
-// has more than one tile and two fit, else 1.
-template <typename T, int DH>
-__global__ void __launch_bounds__(K2Shape<T, DH>::NW * 32)
-    decode_cluster(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                   int KV, int qg, int q0, int pos, int window, int ring,
-                   int chunk, int n_stages, float scale_log2) {
-  using SH = K2Shape<T, DH>;
+// has more than one tile and two fit, else 1. k_scale / v_scale: K3's
+// (B, S, KV) scales, unread by K2.
+template <typename T, typename C, int DH>
+__global__ void __launch_bounds__(Shape<T, C, DH>::NW * 32)
+    decode_cluster(const T* __restrict__ q, const C* __restrict__ k,
+                   const float* __restrict__ k_scale,
+                   const C* __restrict__ v,
+                   const float* __restrict__ v_scale, T* __restrict__ o,
+                   int S, int H, int KV, int qg, int q0, int pos, int window,
+                   int ring, int chunk, int n_stages, float scale_log2) {
+  using SH = Shape<T, C, DH>;
   constexpr int NW_ = SH::NW, NTH = NW_ * 32, RB = SH::RB, PS = SH::PS;
   constexpr int GM = SH::GM;
-  constexpr int EPC = 16 / (int)sizeof(T);  // elements per 16 bytes
-  constexpr int CPR = DH / EPC;             // 16-byte chunks of a row's data
+  constexpr int CEPC = 16 / (int)sizeof(C);  // cache elements per 16 bytes
+  constexpr int CCPR = DH / CEPC;            // 16-byte chunks of a cache row
+  constexpr int QEPC = 16 / (int)sizeof(T);  // q elements per 16 bytes
+  constexpr int QCPR = DH / QEPC;            // 16-byte chunks of a q row
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / KV;
   unsigned char* qsm = smem;
@@ -505,8 +728,9 @@ __global__ void __launch_bounds__(K2Shape<T, DH>::NW * 32)
   const int my_tiles = n_tiles > warp ? (n_tiles - warp + NW_ - 1) / NW_ : 0;
   unsigned char* wring = ring_tiles + (size_t)warp * n_stages * SH::STAGE;
   const size_t slot_stride = (size_t)KV * DH;
-  const T* krow0 = k + ((size_t)b * S * KV + kvh) * DH;
-  const T* vrow0 = v + ((size_t)b * S * KV + kvh) * DH;
+  const size_t row0 = (size_t)b * S * KV + kvh;  // slot 0's (b, kvh) row
+  const C* krow0 = k + row0 * DH;
+  const C* vrow0 = v + row0 * DH;
 
   // the first slot of this warp's i-th tile; whether slot s is valid
   auto tile_slot = [&](int i) { return s0 + (warp + i * NW_) * TS; };
@@ -521,27 +745,34 @@ __global__ void __launch_bounds__(K2Shape<T, DH>::NW * 32)
     if (mask == 0) return;  // no valid slot: nothing read
     unsigned char* kt = wring + stage * SH::STAGE;
     unsigned char* vt = kt + TS * RB;
-    for (int c = lane; c < TS * CPR; c += 32) {
-      const int r = c / CPR, cc = c % CPR;
+    for (int c = lane; c < TS * CCPR; c += 32) {
+      const int r = c / CCPR, cc = c % CCPR;
       const bool ok = (mask >> r) & 1u;
-      const size_t off = (size_t)(ok ? first + r : 0) * slot_stride + cc * EPC;
-      const int pc = SH::SWZ ? swz<CPR>(r, cc) : cc;
+      const size_t off = (size_t)(ok ? first + r : 0) * slot_stride + cc * CEPC;
+      const int pc = SH::SWZ ? swz<CCPR>(r, cc) : cc;
       cp_async16(smem_u32(kt + r * RB + pc * 16), krow0 + off, ok);
       cp_async16(smem_u32(vt + r * RB + pc * 16), vrow0 + off, ok);
+    }
+    if constexpr (SH::Q8) {  // each lane its own slot's two scales
+      float* sc = reinterpret_cast<float*>(vt + TS * RB);
+      const bool ok = (mask >> lane) & 1u;
+      const size_t off = row0 + (size_t)(ok ? first + lane : 0) * KV;
+      cp_async4(smem_u32(sc + lane), k_scale + off, ok);
+      cp_async4(smem_u32(sc + TS + lane), v_scale + off, ok);
     }
   };
 
   // q, then the cache's first tiles, go in flight at once: q in group 0
-  // (G bf16 rows at stride RB and a zero row, or G f32 rows and zero rows
-  // up to GM; zero rows are zero-filled without a read)
+  // (zero rows past G zero-filled without a read)
   {
-    constexpr int QROW = SH::MMA ? RB : DH * (int)sizeof(float);
-    const int q_rows = SH::MMA ? G + 1 : GM;
+    const int q_rows = SH::q_rows(G);
     const T* qrow0 = q + ((size_t)bkv * qg + q0) * DH;
-    for (int i = threadIdx.x; i < q_rows * CPR; i += NTH) {
-      const int r = i / CPR, c = i % CPR;
-      cp_async16(smem_u32(qsm + r * QROW + c * 16),
-                 qrow0 + (r < G ? r * DH + c * EPC : 0), r < G);
+    // one or two rounds; unrolled, it made K2's bf16 dh-32 instance spill
+#pragma unroll 1
+    for (int i = threadIdx.x; i < q_rows * QCPR; i += NTH) {
+      const int r = i / QCPR, c = i % QCPR;
+      cp_async16(smem_u32(qsm + r * SH::QRB + c * 16),
+                 qrow0 + (r < G ? r * DH + c * QEPC : 0), r < G);
     }
     cp_async_commit();
   }
@@ -555,8 +786,10 @@ __global__ void __launch_bounds__(K2Shape<T, DH>::NW * 32)
     cp_async_wait<1>();
   __syncthreads();
 
-  std::conditional_t<SH::MMA, MmaPass<DH, RB, SH::SWZ>,
-                     SimtPass<T, DH, GM>>
+  std::conditional_t<SH::MMA,
+                     std::conditional_t<SH::Q8, Q8MmaPass<DH, RB>,
+                                        MmaPass<DH, RB, SH::SWZ>>,
+                     SimtPass<C, DH, GM>>
       pass;
   pass.init(qsm, G, lane);
   float* pw = ps + warp * GM * TS;
@@ -642,12 +875,13 @@ __global__ void __launch_bounds__(K2Shape<T, DH>::NW * 32)
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch_k2(const void* q, const void* k, const void* v, void* o,
-                      int B, int S, int H, int KV, int qg, int q0, int pos,
-                      int window, int ring, int n_ctas, int chunk,
-                      float scale, cudaStream_t stream) {
-  using SH = K2Shape<T, DH>;
+template <typename T, typename C, int DH>
+cudaError_t launch(const void* q, const void* k, const void* ks,
+                   const void* v, const void* vs, void* o, int B, int S,
+                   int H, int KV, int qg, int q0, int pos, int window,
+                   int ring, int n_ctas, int chunk, float scale,
+                   cudaStream_t stream) {
+  using SH = Shape<T, C, DH>;
   if (n_ctas < 1 || n_ctas > MAX_CLUSTER || chunk < 1 ||
       (long)n_ctas * chunk < S)
     return cudaErrorInvalidValue;
@@ -656,7 +890,7 @@ cudaError_t launch_k2(const void* q, const void* k, const void* v, void* o,
     return SH::head(G) + (size_t)SH::NW * stages * SH::STAGE;
   };
   const int n_stages = tiles > SH::NW && smem_for(2) <= SMEM_LIMIT ? 2 : 1;
-  cudaError_t err = allow_optin_smem<decode_cluster<T, DH>>();
+  cudaError_t err = allow_optin_smem<decode_cluster<T, C, DH>>();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_ctas, B * KV);
@@ -670,201 +904,29 @@ cudaError_t launch_k2(const void* q, const void* k, const void* v, void* o,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, decode_cluster<T, DH>,
-                           static_cast<const T*>(q), static_cast<const T*>(k),
-                           static_cast<const T*>(v), static_cast<T*>(o), S, H,
-                           KV, qg, q0, pos, window, ring, chunk, n_stages,
-                           scale * LOG2E);
+  err = cudaLaunchKernelEx(
+      &cfg, decode_cluster<T, C, DH>, static_cast<const T*>(q),
+      static_cast<const C*>(k), static_cast<const float*>(ks),
+      static_cast<const C*>(v), static_cast<const float*>(vs),
+      static_cast<T*>(o), S, H, KV, qg, q0, pos, window, ring, chunk,
+      n_stages, scale * LOG2E);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_k2_dh(int dh, const void* q, const void* k, const void* v,
-                         void* o, int B, int S, int H, int KV, int qg, int q0,
-                         int pos, int window, int ring, int n_ctas,
-                         int chunk, float scale, cudaStream_t stream) {
+template <typename T, typename C>
+cudaError_t launch_dh(int dh, const void* q, const void* k, const void* ks,
+                      const void* v, const void* vs, void* o, int B, int S,
+                      int H, int KV, int qg, int q0, int pos, int window,
+                      int ring, int n_ctas, int chunk, float scale,
+                      cudaStream_t stream) {
   if (KV < 1 || H % KV || H / KV > MAX_GROUP || q0 < 0 ||
       q0 + H / KV > qg)
     return cudaErrorInvalidValue;
-#define K2_CASE(D)                                                        \
-  case D:                                                                 \
-    return launch_k2<T, D>(q, k, v, o, B, S, H, KV, qg, q0, pos, window,  \
-                           ring, n_ctas, chunk, scale, stream);
-  switch (dh) {
-    K2_CASE(32)
-    K2_CASE(64)
-    K2_CASE(128)
-    K2_CASE(256)
-    default:
-      return cudaErrorInvalidValue;
-  }
-#undef K2_CASE
-}
-
-// --- K3 ---------------------------------------------------------------------
-
-size_t split_smem_bytes(int G, int dh) {
-  return sizeof(float) *
-         ((size_t)G * dh + (size_t)NW * G * dh + 2 * (size_t)NW * G);
-}
-
-// One CTA per (chunk of slots, batch*kv-head row). T is the type of q and
-// of the output; C is the cache element type (int8 for K3).
-template <typename T, typename C, int DH, bool Q8>
-__global__ void __launch_bounds__(NT)
-    decode_split(const T* __restrict__ q, const C* __restrict__ k,
-                 const float* __restrict__ k_scale, const C* __restrict__ v,
-                 const float* __restrict__ v_scale,
-                 float* __restrict__ o_part, float* __restrict__ ml_part,
-                 int S, int H, int KV, int pos, int window, int ring,
-                 int chunk, float scale) {
-  constexpr int E = DH / 32;  // elements per lane
-  extern __shared__ float sm[];
-  const int G = H / KV;
-  float* qs = sm;                   // G x DH
-  float* acc = qs + G * DH;         // NW x G x DH
-  float* ms = acc + NW * G * DH;    // NW x G
-  float* ls = ms + NW * G;          // NW x G
-
-  const int split = blockIdx.x, n_splits = gridDim.x;
-  const int bkv = blockIdx.y, b = bkv / KV, kvh = bkv % KV;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  for (int i = threadIdx.x; i < G * DH; i += NT)
-    qs[i] = to_f(q[((size_t)b * H + (size_t)kvh * G) * DH + i]);
-  for (int i = threadIdx.x; i < NW * G * DH; i += NT) acc[i] = 0.f;
-  for (int i = threadIdx.x; i < NW * G; i += NT) {
-    ms[i] = NEG_INF;
-    ls[i] = 0.f;
-  }
-  __syncthreads();
-
-  float* accw = acc + warp * G * DH;
-  float* mw = ms + warp * G;
-  float* lw = ls + warp * G;
-  const int s0 = split * chunk, s1 = min(S, s0 + chunk);
-  for (int s = s0 + warp; s < s1; s += NW) {
-    const int sp = slot_position(s, S, pos, ring != 0);
-    if (sp < 0 || sp > pos || (window > 0 && sp <= pos - window)) continue;
-    const size_t slot = (size_t)(b * S + s) * KV + kvh;
-    const size_t row = slot * DH + lane * E;
-    float kf[E], vf[E];
-    if constexpr (Q8) {
-      const float ksc = k_scale[slot], vsc = v_scale[slot];
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        kf[e] = (float)k[row + e] * ksc;
-        vf[e] = (float)v[row + e] * vsc;
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        kf[e] = to_f(k[row + e]);
-        vf[e] = to_f(v[row + e]);
-      }
-    }
-    for (int g = 0; g < G; ++g) {
-      float d = 0.f;
-#pragma unroll
-      for (int e = 0; e < E; ++e) d = fmaf(qs[g * DH + lane * E + e], kf[e], d);
-      d = warp_sum(d) * scale;
-      const float m_old = mw[g], l_old = lw[g];
-      const float m_new = fmaxf(m_old, d);
-      const float alpha = expf(m_old - m_new);
-      const float p = expf(d - m_new);
-      float pv = p;  // K3 keeps p in f32
-      if constexpr (!Q8) pv = to_f(from_f<C>(p));
-      float* a = accw + g * DH + lane * E;
-#pragma unroll
-      for (int e = 0; e < E; ++e) a[e] = fmaf(pv, vf[e], alpha * a[e]);
-      __syncwarp();  // every lane has read mw[g], lw[g]
-      if (lane == 0) {
-        mw[g] = m_new;
-        lw[g] = alpha * l_old + p;
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-
-  const size_t part = (size_t)bkv * n_splits + split;
-  for (int i = threadIdx.x; i < G * DH; i += NT) {
-    const int g = i / DH;
-    float M = NEG_INF;
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, ms[w * G + g]);
-    float o = 0.f;
-    for (int w = 0; w < NW; ++w)
-      o += acc[w * G * DH + i] * expf(ms[w * G + g] - M);
-    o_part[part * G * DH + i] = o;
-  }
-  for (int g = threadIdx.x; g < G; g += NT) {
-    float M = NEG_INF;
-    for (int w = 0; w < NW; ++w) M = fmaxf(M, ms[w * G + g]);
-    float L = 0.f;
-    for (int w = 0; w < NW; ++w) L += ls[w * G + g] * expf(ms[w * G + g] - M);
-    ml_part[(part * G + g) * 2] = M;
-    ml_part[(part * G + g) * 2 + 1] = L;
-  }
-}
-
-// One CTA of dh threads per (batch*kv-head row, query head in the group).
-template <typename T>
-__global__ void decode_combine(const float* __restrict__ o_part,
-                               const float* __restrict__ ml_part,
-                               T* __restrict__ o, int n_splits, int H,
-                               int KV, int DH) {
-  const int G = H / KV;
-  const int bkv = blockIdx.x / G, g = blockIdx.x % G;
-  const int b = bkv / KV, kvh = bkv % KV;
-  const int d = threadIdx.x;
-  float M = NEG_INF;
-  for (int sp = 0; sp < n_splits; ++sp)
-    M = fmaxf(M, ml_part[(((size_t)bkv * n_splits + sp) * G + g) * 2]);
-  float L = 0.f, acc = 0.f;
-  for (int sp = 0; sp < n_splits; ++sp) {
-    const size_t part = (size_t)bkv * n_splits + sp;
-    const float w = expf(ml_part[(part * G + g) * 2] - M);
-    L += ml_part[(part * G + g) * 2 + 1] * w;
-    acc += o_part[(part * G + g) * DH + d] * w;
-  }
-  o[((size_t)b * H + (size_t)kvh * G + g) * DH + d] =
-      from_f<T>(acc / fmaxf(L, 1e-30f));
-}
-
-template <typename T, typename C, bool Q8, int DH>
-cudaError_t launch(const void* q, const void* k, const void* ks,
-                   const void* v, const void* vs, void* o, float* o_part,
-                   float* ml_part, int B, int S, int H, int KV, int pos,
-                   int window, int ring, int n_splits, int chunk,
-                   float scale, cudaStream_t stream) {
-  const int G = H / KV;
-  const size_t smem = split_smem_bytes(G, DH);
-  cudaError_t err = allow_optin_smem<decode_split<T, C, DH, Q8>>();
-  if (err != cudaSuccess) return err;
-  decode_split<T, C, DH, Q8><<<dim3(n_splits, B * KV), NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const C*>(k),
-      static_cast<const float*>(ks), static_cast<const C*>(v),
-      static_cast<const float*>(vs), o_part, ml_part, S, H, KV, pos, window,
-      ring, chunk, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_combine<T><<<B * KV * G, DH, 0, stream>>>(
-      o_part, ml_part, static_cast<T*>(o), n_splits, H, KV, DH);
-  return cudaGetLastError();
-}
-
-template <typename T, typename C, bool Q8>
-cudaError_t launch_dh(int dh, const void* q, const void* k, const void* ks,
-                      const void* v, const void* vs, void* o, float* o_part,
-                      float* ml_part, int B, int S, int H, int KV, int pos,
-                      int window, int ring, int n_splits, int chunk,
-                      float scale, cudaStream_t stream) {
 #define DECODE_CASE(D)                                                       \
   case D:                                                                    \
-    return launch<T, C, Q8, D>(q, k, ks, v, vs, o, o_part, ml_part, B, S, H, \
-                               KV, pos, window, ring, n_splits, chunk,       \
-                               scale, stream);
+    return launch<T, C, D>(q, k, ks, v, vs, o, B, S, H, KV, qg, q0, pos,     \
+                           window, ring, n_ctas, chunk, scale, stream);
   switch (dh) {
     DECODE_CASE(32)
     DECODE_CASE(64)
@@ -881,10 +943,10 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* ks,
 // K2 over a sub-group of each kv head's query group: q and o (B, 1,
 // KV * qg, dh) hold qg query heads per kv head, and this launch attends
 // with heads q0 .. q0 + H / KV - 1 of each group (H / KV at most 8), in
-// place; qg = H / KV, q0 = 0 is the whole group. k/v (B, S, KV, dh) of q's type, 16-byte aligned. dtype: 0 = f32,
-// 1 = bf16. ring: 0 = full cache, 1 = ring. n_ctas (1-8) CTAs per
-// batch*kv-head row, one cluster, each over chunk slots (n_ctas * chunk
-// >= S).
+// place; qg = H / KV, q0 = 0 is the whole group. k/v (B, S, KV, dh) of q's
+// type, 16-byte aligned. dtype: 0 = f32, 1 = bf16. ring: 0 = full cache,
+// 1 = ring. n_ctas (1-8) CTAs per batch*kv-head row, one cluster, each
+// over chunk slots (n_ctas * chunk >= S).
 extern "C" int decode_attention_group_fwd(const void* q, const void* k,
                                           const void* v, void* o, int dtype,
                                           int B, int S, int H, int KV,
@@ -894,34 +956,34 @@ extern "C" int decode_attention_group_fwd(const void* q, const void* k,
                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_k2_dh<float>(dh, q, k, v, o, B, S, H, KV, qg, q0, pos,
-                               window, ring, n_ctas, chunk, scale, st);
+    return launch_dh<float, float>(dh, q, k, nullptr, v, nullptr, o, B, S,
+                                   H, KV, qg, q0, pos, window, ring, n_ctas,
+                                   chunk, scale, st);
   if (dtype == 1)
-    return launch_k2_dh<__nv_bfloat16>(dh, q, k, v, o, B, S, H, KV, qg, q0,
-                                       pos, window, ring, n_ctas, chunk,
-                                       scale, st);
+    return launch_dh<bf16, bf16>(dh, q, k, nullptr, v, nullptr, o, B, S, H,
+                                 KV, qg, q0, pos, window, ring, n_ctas, chunk,
+                                 scale, st);
   return cudaErrorInvalidValue;
 }
 
-// K3. As K2, with k/v (B, S, KV, dh) int8 and k_scale/v_scale (B, S, KV) f32.
+// K3, as K2 with k/v (B, S, KV, dh) int8 (16-byte aligned) and
+// k_scale/v_scale (B, S, KV) f32; q and o of type dtype.
 extern "C" int decode_attention_q8_fwd(const void* q, const void* k,
                                        const void* k_scale, const void* v,
                                        const void* v_scale, void* o,
-                                       void* o_part, void* ml_part, int dtype,
-                                       int B, int S, int H, int KV, int dh,
+                                       int dtype, int B, int S, int H,
+                                       int KV, int qg, int q0, int dh,
                                        int pos, int window, int ring,
-                                       int n_splits, int chunk, float scale,
+                                       int n_ctas, int chunk, float scale,
                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* op = static_cast<float*>(o_part);
-  float* mlp = static_cast<float*>(ml_part);
   if (dtype == 0)
-    return launch_dh<float, int8_t, true>(dh, q, k, k_scale, v, v_scale, o,
-                                          op, mlp, B, S, H, KV, pos, window,
-                                          ring, n_splits, chunk, scale, st);
+    return launch_dh<float, int8_t>(dh, q, k, k_scale, v, v_scale, o, B, S,
+                                    H, KV, qg, q0, pos, window, ring, n_ctas,
+                                    chunk, scale, st);
   if (dtype == 1)
-    return launch_dh<__nv_bfloat16, int8_t, true>(
-        dh, q, k, k_scale, v, v_scale, o, op, mlp, B, S, H, KV, pos, window,
-        ring, n_splits, chunk, scale, st);
+    return launch_dh<bf16, int8_t>(dh, q, k, k_scale, v, v_scale, o, B, S, H,
+                                   KV, qg, q0, pos, window, ring, n_ctas,
+                                   chunk, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -19,16 +19,18 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.models.attention import (decode_attention as
+from repro_torch.models.attention import (NEG_INF, decode_attention as
                                           _model_decode_attention,
-                                          dequantize_kv)
+                                          dequantize_kv, full_slot_positions,
+                                          ring_slot_positions)
 
-_MIN_CHUNK = 32          # K3: cache slots per CTA, at least
-_CTAS_PER_SM = 4         # K3: split-K target, this many CTAs per SM
-SLOT_TILE = 32           # K2: cache slots per warp tile, one per lane
-MAX_CLUSTER = 8          # K2: CTAs per cluster, the portable limit
+SLOT_TILE = 32           # K2, K3: cache slots per warp tile, one per lane
+MAX_CLUSTER = 8          # K2, K3: CTAs per cluster, the portable limit
 _K2_CTAS_PER_SM = 2      # K2: target CTAs per SM
-MAX_GROUP = 8            # K2: query heads per kv head in one launch
+# K3: target CTAs per SM; its int8 tiles take half K2's shared memory, so
+# twice as many fit
+_K3_CTAS_PER_SM = 4
+MAX_GROUP = 8            # K2, K3: query heads per kv head in one launch
 
 
 def decode_attention_plain(q, cache_k, cache_v, pos, *, window: int = 0,
@@ -48,6 +50,36 @@ def decode_attention_quant_plain(q, cache_k, k_scale, cache_v, v_scale, pos,
     out = _model_decode_attention(q.float(), kf, vf, pos, window=window,
                                   ring=ring)
     return out.to(q.dtype)
+
+
+def decode_attention_quant_as_kernel(q, cache_k, k_scale, cache_v, v_scale,
+                                     pos, *, window: int = 0,
+                                     ring: bool = False):
+    """K3's arithmetic, in plain PyTorch (tests only): the int8 values
+    exactly, scores q . k8 in f32 times the slot's k scale and dh^-0.5,
+    the masked softmax's p in f32 summed into l, and p times the slot's v
+    scale against v8 -- rounded to bf16 when q is bf16, as the tensor-core
+    pass rounds it, in f32 otherwise; the output in q's type. The kernel
+    takes p against its running max, this against the row's max: the
+    rounding of p is the same to its relative error."""
+    B, _, H, dh = q.shape
+    S, KV = cache_k.shape[1], cache_k.shape[2]
+    sp = (ring_slot_positions(pos + 1, S, q.device) if ring
+          else full_slot_positions(pos, S, q.device))
+    valid = (sp >= 0) & (sp <= pos)
+    if window:
+        valid &= sp > pos - window
+    qg = q.float().reshape(B, KV, H // KV, dh)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, cache_k.float())
+    s = s * (k_scale.permute(0, 2, 1)[:, :, None] * dh ** -0.5)
+    s = torch.where(valid, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * valid
+    pv = p * v_scale.permute(0, 2, 1)[:, :, None]
+    if q.dtype == torch.bfloat16:
+        pv = pv.to(torch.bfloat16).float()
+    out = torch.einsum("bkgs,bskd->bkgd", pv, cache_v.float())
+    out = out / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(B, 1, H, dh).to(q.dtype)
 
 
 def _check(q, cache_k, cache_v, kv_dtype, scales=()) -> None:
@@ -79,6 +111,9 @@ def _check(q, cache_k, cache_v, kv_dtype, scales=()) -> None:
                          f"{_build.HEAD_DIMS}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("decode_attention: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, cache_k, cache_v)):
+        raise ValueError("decode_attention: q and the caches must be "
+                         "16-byte aligned")
 
 
 @functools.lru_cache(maxsize=None)
@@ -86,27 +121,24 @@ def _sm_count(index) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(B: int, S: int, KV: int, sms: int):
-    """K3's split-K shape on a card of ``sms`` SMs: enough CTAs to fill the
-    card, chunks of at least ``_MIN_CHUNK`` slots. Returns (n_splits,
-    chunk): split i takes slots [i * chunk, min(S, (i + 1) * chunk))."""
-    want = max(1, math.ceil(_CTAS_PER_SM * sms / (B * KV)))
-    n = max(1, min(want, math.ceil(S / _MIN_CHUNK)))
-    chunk = math.ceil(S / n)
-    return math.ceil(S / chunk), chunk
-
-
-def cluster_plan(B: int, S: int, KV: int, sms: int):
+def cluster_plan(B: int, S: int, KV: int, sms: int,
+                 ctas_per_sm: int = _K2_CTAS_PER_SM):
     """K2's launch shape on a card of ``sms`` SMs: one cluster of
     ``n_ctas`` (1 to ``MAX_CLUSTER``) CTAs per (batch, kv head) row, about
-    ``_K2_CTAS_PER_SM`` CTAs per SM in all, each CTA over ``chunk``
+    ``ctas_per_sm`` CTAs per SM in all, each CTA over ``chunk``
     consecutive slots and at least one ``SLOT_TILE`` of them when S allows.
     Returns (n_ctas, chunk): CTA r takes slots [r * chunk, min(S, (r + 1)
     * chunk)), and every CTA's range is non-empty."""
-    want = math.ceil(_K2_CTAS_PER_SM * sms / (B * KV))
+    want = math.ceil(ctas_per_sm * sms / (B * KV))
     n = max(1, min(MAX_CLUSTER, want, S // SLOT_TILE))
     chunk = math.ceil(S / n)
     return math.ceil(S / chunk), chunk
+
+
+def quant_plan(B: int, S: int, KV: int, sms: int):
+    """K3's launch shape: ``cluster_plan`` at ``_K3_CTAS_PER_SM`` CTAs per
+    SM."""
+    return cluster_plan(B, S, KV, sms, _K3_CTAS_PER_SM)
 
 
 def sub_groups(G: int) -> int:
@@ -120,43 +152,23 @@ def sub_groups(G: int) -> int:
     return n
 
 
-def _launch_k2(q, cache_k, cache_v, pos, window, ring):
+def _launch(name, plan, q, caches, pos, window, ring):
+    """K2 (``caches`` = k, v) or K3 (k, k_scale, v, v_scale) through the C
+    entry ``name``: one launch per sub-group of g query heads of each kv
+    head's group, reading q and writing the output in place."""
     B, _, H, dh = q.shape
-    S, KV = cache_k.shape[1], cache_k.shape[2]
+    S, KV = caches[0].shape[1], caches[0].shape[2]
     G = H // KV
     g = G // sub_groups(G)
-    n_ctas, chunk = cluster_plan(B, S, KV, _sm_count(q.device.index))
+    n_ctas, chunk = plan(B, S, KV, _sm_count(q.device.index))
     o = torch.empty_like(q)
-    fn = _build.entry("decode_attention", "decode_attention_group_fwd", 4, 13)
-    # one launch per sub-group of g query heads of each kv head's group,
-    # reading q and writing o in place
+    fn = _build.entry("decode_attention", name, len(caches) + 2, 13)
+    ptrs = [q.data_ptr()] + [t.data_ptr() for t in caches] + [o.data_ptr()]
     for q0 in range(0, G, g):
-        err = fn(q.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-                 o.data_ptr(), _build.DTYPES[q.dtype], B, S, KV * g, KV, G,
-                 q0, dh, int(pos), int(window), int(ring), n_ctas, chunk,
-                 dh ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
-        _build.check(err, "decode_attention_group_fwd")
-    return o
-
-
-def _launch_k3(q, cache_k, k_scale, cache_v, v_scale, pos, window, ring):
-    B, _, H, dh = q.shape
-    S, KV = cache_k.shape[1], cache_k.shape[2]
-    G = H // KV
-    n_splits, chunk = split_plan(B, S, KV, _sm_count(q.device.index))
-    o = torch.empty_like(q)
-    o_part = torch.empty((B * KV, n_splits, G, dh), dtype=torch.float32,
-                         device=q.device)
-    ml_part = torch.empty((B * KV, n_splits, G, 2), dtype=torch.float32,
-                          device=q.device)
-    fn = _build.entry("decode_attention", "decode_attention_q8_fwd", 8, 11)
-    err = fn(q.data_ptr(), cache_k.data_ptr(), k_scale.data_ptr(),
-             cache_v.data_ptr(), v_scale.data_ptr(), o.data_ptr(),
-             o_part.data_ptr(), ml_part.data_ptr(), _build.DTYPES[q.dtype],
-             B, S, H, KV, dh,
-             int(pos), int(window), int(ring), n_splits, chunk, dh ** -0.5,
-             torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "decode_attention_q8_fwd")
+        err = fn(*ptrs, _build.DTYPES[q.dtype], B, S, KV * g, KV, G, q0, dh,
+                 int(pos), int(window), int(ring), n_ctas, chunk, dh ** -0.5,
+                 torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, name)
     return o
 
 
@@ -168,10 +180,8 @@ def decode_attention(q, cache_k, cache_v, pos, *, window: int = 0,
         return decode_attention_plain(q, cache_k, cache_v, pos,
                                       window=window, ring=ring)
     _check(q, cache_k, cache_v, None)
-    if any(t.data_ptr() % 16 for t in (q, cache_k, cache_v)):
-        raise ValueError("decode_attention: q and the caches must be "
-                         "16-byte aligned")
-    o = _launch_k2(q, cache_k, cache_v, pos, window, ring)
+    o = _launch("decode_attention_group_fwd", cluster_plan, q,
+                (cache_k, cache_v), pos, window, ring)
     _build.count_launch(decode_attention)
     return o
 
@@ -185,8 +195,8 @@ def decode_attention_quant(q, cache_k, k_scale, cache_v, v_scale, pos, *,
                                             v_scale, pos, window=window,
                                             ring=ring)
     _check(q, cache_k, cache_v, torch.int8, (k_scale, v_scale))
-    o = _launch_k3(q, cache_k, k_scale, cache_v, v_scale, pos, window,
-                   ring)
+    o = _launch("decode_attention_q8_fwd", quant_plan, q,
+                (cache_k, k_scale, cache_v, v_scale), pos, window, ring)
     _build.count_launch(decode_attention_quant)
     return o
 

@@ -174,9 +174,10 @@ def _attn_branch(cfg: ModelConfig, p, xn, layer_cache, pos, mode,
             cks[:, idx] = sk[:, 0]
             cvs[:, idx] = sv[:, 0]
             # the reference dequantizes the whole cache to compute_dtype,
-            # then attends; K3 dequantizes in f32 with q upcast to f32 —
-            # equal in f32 up to summation order, rounding-level apart in
-            # bf16
+            # then attends; K3 reads the int8 values exactly, scales the
+            # f32 scores by k_scale and rounds p * v_scale to the compute
+            # type -- equal in f32 up to summation order, rounding-level
+            # apart in bf16
             out = ops.decode_quant(q, ck, cks, cv, cvs, pos, window=window,
                                    ring=ring)
         else:

@@ -5,7 +5,9 @@ is present. On a machine with one:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: 2e-5 for float32 (summation order only; K1's float32 kernel
-runs on the CUDA cores, not in TF32), 2e-2 for bfloat16;
+runs on the CUDA cores, not in TF32), 2e-2 for bfloat16; K2 above 8
+query heads per kv head and K3's edge cases in bfloat16 within 2**-6 of
+each output row's largest value;
 for the mLSTM scan (K4, float32 only) and the SSM scan (K5), whose
 states sum S steps, the largest |difference| in a row over the row's
 largest |plain value| at most 1e-4 in float32; K5's bfloat16 y, rounded
@@ -231,6 +233,106 @@ def test_decode_k2_groups_above_8(gen, dtype, H, KV, dh, ring, pos):
 def _row_rel(out, ref) -> float:
     d = (out - ref).abs().amax(-1)
     return (d / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def _check_k3(gen, dtype, B, S, H, KV, dh, window, ring, pos, k=None,
+              v=None):
+    """K3 (one counted wrapper call) against its plain version and against
+    the transcription of its arithmetic: bf16 rows within 2**-6 of each
+    row's largest value, f32 within 2e-5. ``k``, ``v``: the float cache to
+    quantize, random normal if not given."""
+    dt = getattr(torch, dtype)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    q = r(B, 1, H, dh).to(dt)
+    k8, ks = attn.quantize_kv(r(B, S, KV, dh) if k is None else k)
+    v8, vs = attn.quantize_kv(r(B, S, KV, dh) if v is None else v)
+    args = (q, k8, ks, v8, vs, pos)
+    before = dec.decode_attention_quant.launches
+    out = dec.decode_attention_quant(*args, window=window, ring=ring)
+    torch.cuda.synchronize()
+    assert dec.decode_attention_quant.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    assert torch.isfinite(out).all()
+    for ref_fn in (dec.decode_attention_quant_plain,
+                   dec.decode_attention_quant_as_kernel):
+        ref = ref_fn(*args, window=window, ring=ring)
+        if dt == torch.bfloat16:
+            assert _row_rel(out.float(), ref.float()) <= 2.0 ** -6
+        else:
+            assert _err(out, ref) < 2e-5
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,KV,dh,window,ring,pos", K2_EDGE_CASES)
+def test_decode_k3_edges(gen, dtype, B, S, H, KV, dh, window, ring, pos):
+    """K3's cluster kernel at K2's edges (positions 0, 1 and 31, S not a
+    tile multiple, a window-1 ring, B*KV = 64, G 5 and 8, dh 32 and 256)."""
+    _check_k3(gen, dtype, B, S, H, KV, dh, window, ring, pos)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("H,KV,dh,ring,pos", [
+    (32, 2, 128, False, 1039),   # chatglm3-6b decode: G 16
+    (18, 2, 64, True, 300),      # G 9: three sub-groups of 3
+    (24, 2, 32, False, 50),      # G 12: two sub-groups of 6
+    (32, 1, 64, True, 2000),     # G 32: four sub-groups of 8
+])
+def test_decode_k3_groups_above_8(gen, dtype, H, KV, dh, ring, pos):
+    """K3 runs a group of more than 8 query heads per kv head as K2 does,
+    in sub-groups of one launch each, within one wrapper call."""
+    _check_k3(gen, dtype, 4, 1024, H, KV, dh, 0, ring, pos)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", [64, 128])
+def test_decode_k3_zero_and_mixed_rows(gen, dtype, dh):
+    """Cache rows of all zeros (quantized with the clamped scale
+    1e-8 / 127) among rows whose magnitudes span four decades (k) and six
+    (v), so that the per-slot scales differ by as much; the largest k rows
+    sit late in the cache, so the running max moves between tiles."""
+    B, S, H, KV = 2, 300, 8, 2
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+
+    def spread(lo, hi):
+        m = 10.0 ** torch.linspace(lo, hi, S, device="cuda")
+        return m[torch.randperm(S, generator=gen, device="cuda")]
+    km = spread(-3.0, 1.0)
+    km[-40:] = 10.0
+    k = r(B, S, KV, dh) * km[None, :, None, None] / dh ** 0.5
+    v = r(B, S, KV, dh) * spread(-6.0, 0.0)[None, :, None, None]
+    for t in (k, v):
+        t[:, ::7] = 0.0
+        t[:, 3, 1] = 0.0
+    _, ks = attn.quantize_kv(k)
+    assert float(ks.min()) == pytest.approx(1e-8 / 127.0)
+    _check_k3(gen, dtype, B, S, H, KV, dh, 0, False, S + 5, k, v)
+
+
+def test_k3_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    q = r(1, 1, 4, 64)
+    k8, ks = attn.quantize_kv(r(1, 32, 2, 64))
+    with pytest.raises(ValueError, match="dtype"):
+        dec.decode_attention_quant(q.half(), k8, ks, k8, ks, 3)
+    with pytest.raises(ValueError, match="dtype"):
+        dec.decode_attention_quant(q, k8.float(), ks, k8.float(), ks, 3)
+    with pytest.raises(ValueError, match="scales must be float32"):
+        dec.decode_attention_quant(q, k8, ks.half(), k8, ks.half(), 3)
+    with pytest.raises(ValueError, match=r"scales must be \(B, S, KV\)"):
+        dec.decode_attention_quant(q, k8, ks[:, :16], k8, ks[:, :16], 3)
+    with pytest.raises(ValueError, match="head dim"):
+        q48 = r(1, 1, 4, 48)
+        k48, ks48 = attn.quantize_kv(r(1, 32, 2, 48))
+        dec.decode_attention_quant(q48, k48, ks48, k48, ks48, 3)
+    kt = k8.transpose(1, 2).contiguous().transpose(1, 2)   # (1, 32, 2, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        dec.decode_attention_quant(q, kt, ks, kt, ks, 3)
+    buf = torch.zeros(1 + 32 * 2 * 64, dtype=torch.int8, device="cuda")
+    k_off = buf[1:].view(1, 32, 2, 64)   # contiguous, 1 byte past alignment
+    with pytest.raises(ValueError, match="aligned"):
+        dec.decode_attention_quant(q, k_off, ks, k_off, ks, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        dec.decode_attention_quant(q, k8.cpu(), ks, k8, ks, 3)
 
 
 def _scan_inputs(gen, B, S, H, dh):

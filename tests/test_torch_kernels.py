@@ -5,7 +5,9 @@ yardstick the CUDA kernel is held against on the card) is held against
 the Pallas kernel of ``repro.kernels`` in interpret mode, as
 ``tests/test_kernels.py`` runs it, and against ``repro.models.attention``.
 Same sweep as ``tests/test_kernels.py``. Tolerances: 2e-5 for float32,
-2e-2 for bfloat16. Inputs come from numpy with a seed.
+2e-2 for bfloat16; the transcription of K3's bf16 arithmetic
+(``decode_attention_quant_as_kernel``) within 2**-6 of each output row's
+largest value. Inputs come from numpy with a seed.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -177,10 +179,15 @@ def test_k2_cluster_plan_covers_every_slot_once(B, S, KV, sms):
 @pytest.mark.parametrize("B,S,KV", PLAN_SHAPES)
 @pytest.mark.parametrize("sms", [132, 114, 16])
 def test_k3_split_plan_covers_every_slot_once(B, S, KV, sms):
-    n, chunk = dec.split_plan(B, S, KV, sms)
+    """K3's launch plan (``quant_plan``, one cluster per (batch, kv head)
+    row) splits the slots among at most MAX_CLUSTER CTAs."""
+    n, chunk = dec.quant_plan(B, S, KV, sms)
+    assert 1 <= n <= dec.MAX_CLUSTER
     ranges = _ranges(n, chunk, S)
     assert [s for r in ranges for s in r] == list(range(S))
     assert all(len(r) > 0 for r in ranges)
+    if S >= dec.SLOT_TILE:
+        assert chunk >= dec.SLOT_TILE
 
 
 def test_k2_cluster_plan_at_serving_shapes():
@@ -191,6 +198,16 @@ def test_k2_cluster_plan_at_serving_shapes():
     assert dec.cluster_plan(4, 1024, 5, 132) == (8, 128)
     # B*KV = 64 rows: 5 CTAs a row fill the card twice over
     assert dec.cluster_plan(8, 1024, 8, 132) == (5, 205)
+
+
+def test_k3_plan_at_serving_shapes():
+    """K3 over qwen3-1.7b's (B 4, KV 8) and hymba-1.5b's (B 4, KV 5) 1024
+    slots on 132 SMs: full clusters of 8 CTAs of 128 slots, as K2; at
+    B*KV = 64 rows its higher target of CTAs per SM keeps 8 CTAs a row
+    where K2 takes 5."""
+    assert dec.quant_plan(4, 1024, 8, 132) == (8, 128)
+    assert dec.quant_plan(4, 1024, 5, 132) == (8, 128)
+    assert dec.quant_plan(8, 1024, 8, 132) == (8, 128)
 
 
 @pytest.mark.parametrize("G,n_sub", [(1, 1), (2, 1), (5, 1), (8, 1), (9, 3),
@@ -232,3 +249,94 @@ def test_k2_sub_group_split_matches_pallas(B, S, H, KV, dh, window, ring,
     assert not torch.isnan(out).any()
     jargs = (jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), pos)
     assert _diff(out, pallas_decode(*jargs, window=window, ring=ring)) < 2e-5
+
+
+def _q8_inputs(rng, B, S, H, KV, dh):
+    """q and an int8 cache with its scales, quantized by the reference so
+    that both sides read the same bytes."""
+    q = _normal(rng, (B, 1, H, dh))
+    ck, cks = (np.array(a) for a in ref_attn.quantize_kv(
+        jnp.asarray(_normal(rng, (B, S, KV, dh)))))
+    cv, cvs = (np.array(a) for a in ref_attn.quantize_kv(
+        jnp.asarray(_normal(rng, (B, S, KV, dh)))))
+    return q, ck, cks, cv, cvs
+
+
+@pytest.mark.parametrize("B,S,H,KV,dh,window,ring,pos", [
+    (2, 64, 32, 2, 128, 0, False, 70),   # chatglm3-6b's heads, G 16
+    (1, 96, 18, 2, 64, 32, True, 150),   # G 9: three sub-groups of 3
+    (2, 48, 24, 2, 32, 0, True, 40),     # G 12: two sub-groups of 6
+    (2, 40, 16, 1, 64, 0, True, 90),     # G 16 over one kv head
+])
+def test_k3_sub_group_split_matches_pallas(B, S, H, KV, dh, window, ring,
+                                           pos):
+    """K3 runs a large group as K2 does, one launch per sub-group of g
+    query heads of every kv head; those launches, here each through the
+    plain version on the gathered heads, give the Pallas int8 kernel's
+    decode attention over the whole group."""
+    rng = np.random.default_rng(11 + H + dh + pos)
+    q, ck, cks, cv, cvs = _q8_inputs(rng, B, S, H, KV, dh)
+    tq = torch.from_numpy(q)
+    cache = [torch.from_numpy(a) for a in (ck, cks, cv, cvs)]
+    G = H // KV
+    g = G // dec.sub_groups(G)
+    assert g <= dec.MAX_GROUP
+    out = torch.full_like(tq, float("nan"))
+    for q0 in range(0, G, g):
+        heads = [kv * G + q0 + i for kv in range(KV) for i in range(g)]
+        out[:, :, heads] = dec.decode_attention_quant_plain(
+            tq[:, :, heads].contiguous(), *cache, pos, window=window,
+            ring=ring)
+    assert not torch.isnan(out).any()
+    pal = pallas_q8(*(jnp.asarray(a) for a in (q, ck, cks, cv, cvs)), pos,
+                    window=window, ring=ring)
+    assert _diff(out, pal) < 2e-5
+
+
+def _row_rel(a, b) -> float:
+    """max over rows of max|a - b| in the row over max|b| in the row"""
+    a = a.float().numpy() if isinstance(a, torch.Tensor) else \
+        np.asarray(jnp.asarray(a, jnp.float32))
+    b = b.float().numpy() if isinstance(b, torch.Tensor) else \
+        np.asarray(jnp.asarray(b, jnp.float32))
+    d = np.abs(a - b).max(-1)
+    return float((d / np.maximum(np.abs(b).max(-1), 1e-30)).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,dh,window,ring,pos", DECODE_CASES)
+def test_k3_kernel_arithmetic_matches_pallas_and_oracle(
+        dtype, B, S, H, KV, dh, window, ring, pos):
+    """``decode_attention_quant_as_kernel`` transcribes the CUDA kernel's
+    arithmetic (int8 exact in bf16, the k scale on the f32 scores, p times
+    the v scale rounded to bf16 for a bf16 q). It computes the Pallas
+    int8 kernel's function and ``decode_attention_q8_ref``'s: within 2e-5
+    in float32, and in bfloat16 within 2**-6 of each row's largest value
+    (both round the output to bf16; the oracle also rounds the dequantised
+    cache and p to bf16)."""
+    rng = np.random.default_rng(5 + S + dh + pos)
+    q, ck, cks, cv, cvs = _q8_inputs(rng, B, S, H, KV, dh)
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    out = dec.decode_attention_quant_as_kernel(
+        torch.from_numpy(q).to(tdt), *(torch.from_numpy(a)
+                                       for a in (ck, cks, cv, cvs)),
+        pos, window=window, ring=ring)
+    assert out.dtype == tdt and out.shape == (B, 1, H, dh)
+    jq = jnp.asarray(q, jdt)
+    pal = pallas_q8(jq, *(jnp.asarray(a) for a in (ck, cks, cv, cvs)), pos,
+                    window=window, ring=ring)
+    G = H // KV
+    fold = lambda a: jnp.asarray(a).transpose(0, 2, 1, 3).reshape(
+        B * KV, S, dh)
+    fold_s = lambda a: jnp.asarray(a).transpose(0, 2, 1).reshape(B * KV, S)
+    slot_pos = (ref_attn.ring_slot_positions(pos + 1, S) if ring else
+                jnp.where(jnp.arange(S) <= pos, jnp.arange(S), -1))
+    oracle = decode_attention_q8_ref(
+        jq.reshape(B * KV, G, dh), fold(ck), fold_s(cks), fold(cv),
+        fold_s(cvs), pos, slot_pos, window=window).reshape(B, 1, H, dh)
+    if tdt == torch.float32:
+        assert _diff(out, pal) < 2e-5
+        assert _diff(out, oracle) < 2e-5
+    else:
+        assert _row_rel(out, pal) <= 2.0 ** -6
+        assert _row_rel(out, oracle) <= 2.0 ** -6
