@@ -18,16 +18,25 @@ exits non-zero:
                chunk) and for one decode step; K1, K2 and K3 also at
                hymba's heads (25 of dh 64 over 5 kv heads) with its
                window and ring cache, and K2 and K3 at chatglm3-6b's (32
-               over 2 kv heads, G 16); each held against its plain
+               over 2 kv heads, G 16); K1 at the prefill shapes of
+               full-width granite-moe-3b-a800m (24 heads over 8 of dh 64)
+               and llava-next-mistral-7b (S 4096 under its 4096 window),
+               K2 and K3 at granite's full cache (G 3), at llava's
+               4096-slot ring and at deepseek-coder-33b's (G 7) and
+               qwen1.5-32b's (G 1) heads; each held against its plain
                PyTorch version (K3 also against the transcription of its
                arithmetic); kernel, plain and library times, the
                card's bound for the same work, bound_frac (bound / kernel
                time) and vs_library (kernel / library time).
-  4. model   — full-width qwen3-1.7b, xlstm-350m and hymba-1.5b (bf16,
-               random weights from a seed): prefill + 4 decode steps
-               through the kernels and through the plain versions; plus
-               reduced f32 configs (qwen3 and hymba with kv_quant off and
-               on, xlstm).
+  4. model   — full-width qwen3-1.7b, xlstm-350m, hymba-1.5b,
+               granite-moe-3b-a800m, llava-next-mistral-7b (B 4, S 4096:
+               2880 patch embeddings, then 1216 tokens) and
+               qwen3-moe-30b-a3b (8 of its 48 layers) (bf16, random
+               weights from a seed): prefill + 4 decode steps through the
+               kernels and through the plain versions; plus reduced f32
+               configs (each attention model with kv_quant off and on,
+               xlstm); granite's prefill run twice must give the same
+               bits.
   5. serve   — three full-width qwen3-1.7b TorchEndpoints behind the
                port's MQFQ-Sticky wall-clock control plane answer 12
                requests with cold, warm and host_warm starts, then one
@@ -38,13 +47,19 @@ exits non-zero:
                read just after; qwen's and hymba's must equal the counts
                computed from layers, requests and warm-ups. One warm
                request of each path, and one of the kv_quant endpoint,
-               is profiled.
+               is profiled. Then three full-width granite-moe-3b-a800m
+               endpoints and three full-width llava-next-mistral-7b
+               endpoints (serve_seq 4096) answer 12 requests each, as
+               qwen's do, with their launch counts checked and one warm
+               request of each profiled; each model's endpoints are
+               freed, host memory included, before the next's are built.
   6. the ``kernels`` line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -106,11 +121,38 @@ XLSTM_LAYERS = 8
 # size and depth), and (2) in bf16, the kernels' distance to the float32
 # logits may exceed the plain versions' own by less than
 # BF16_MODEL_REL_TOL.
+# The MoE models are held the same way. Top-k routing is discontinuous,
+# and with a random router the gap between a token's k-th and (k+1)-th
+# router probability falls to 2e-8: at granite-moe-3b-a800m's full width in bf16,
+# 118-870 of the 4096 prompt tokens a layer pick other experts in the
+# kernels' prefill than in the plain one, and the capacity bound drops
+# 1756-11201 of the 32768 pairs a layer (one expert is sent up to 3348
+# for 1025 slots). Kernels vs plain were 5.4% over the prefill and 4
+# decode steps; the plain bf16 prefill is itself 4.5% from its float32
+# evaluation, the kernels' 6.8%, and in float32 kernels and plain agree
+# to 5.4e-6 (one H100 run each, seed 0; ``scripts/moe_routing.py``).
+POORLY_CONDITIONED = ("hybrid", "moe")
 
 
-# chatglm3-6b's attention heads (the port serves no chatglm model yet):
-# G = 16 query heads per kv head, above the 8 a launch of K2 and K3
+# chatglm3-6b's attention heads: G = 16 query heads per kv head, above
+# the 8 a launch of K2 and K3
 GLM_HEADS = types.SimpleNamespace(n_heads=32, n_kv_heads=2, head_dim=128)
+# deepseek-coder-33b's (G 7) and qwen1.5-32b's (G 1, 40 kv heads) decode
+# heads: at 66.7 and 70.4 GB of bf16 weights no serving run of either
+# fits beside the others, so K2 and K3 are held at their heads alone
+DEEPSEEK_HEADS = types.SimpleNamespace(n_heads=56, n_kv_heads=8,
+                                       head_dim=128)
+QWEN15_HEADS = types.SimpleNamespace(n_heads=40, n_kv_heads=40, head_dim=128)
+# llava-next-mistral-7b serves prompts of 4096 positions: its 2880 patch
+# embeddings (5 anyres tiles of 576), then 1216 tokens. Its ring cache is
+# 4096 slots, its window's length, so the 16 decode steps overwrite
+# exactly the positions the window drops.
+LLAVA_SEQ = 4096
+# qwen3-moe-30b-a3b at full width, cut to 8 of its 48 layers: its 60.2 GB
+# of bf16 weights leave no room on the card for init_params' float32 draw
+# of a stacked leaf (we1 at 48 layers is 38.7 GB in float32; at 8 layers
+# 6.4 GB)
+QWEN3_MOE_LAYERS = 8
 
 
 def emit(**kw) -> None:
@@ -269,7 +311,10 @@ FLASH_CASES = [(SERVE_BATCH, SERVE_SEQ, 0), (SERVE_BATCH, SERVE_SEQ, 256),
 
 def check_flash(fl, cfg, dev, cases=FLASH_CASES, model="qwen3-1.7b"):
     """K1 at the prefill shape (causal), with a window, and unaligned
-    (``cases``: (B, S, window) each); returns the first case's numbers."""
+    (``cases``: (B, S, window) each); returns the first case's numbers.
+    The plain version is the model's plain prefill, which above 2048
+    positions attends in query chunks (the reference's chunk rule)."""
+    from repro_torch.models.transformer import prefill_attention_plain
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = torch.Generator(dev).manual_seed(1)
     mk = lambda B, S: tuple(
@@ -279,12 +324,12 @@ def check_flash(fl, cfg, dev, cases=FLASH_CASES, model="qwen3-1.7b"):
     for B, S, window in cases:
         q, k, v = mk(B, S)
         err = check_kernel("K1", fl.flash_attention(q, k, v, window=window),
-                           fl.flash_attention_plain(q, k, v, window=window),
+                           prefill_attention_plain(q, k, v, window=window),
                            B=B, S=S, window=window)
         sets = [mk(B, S) for _ in range(n_sets(2 * nbytes(q, k, v)))]
         run = lambda q, k, v: fl.flash_attention(q, k, v, window=window)
         kern, kern_host = device_ms(run, sets), host_ms(run, sets)
-        plain = device_ms(lambda q, k, v: fl.flash_attention_plain(
+        plain = device_ms(lambda q, k, v: prefill_attention_plain(
             q, k, v, window=window), sets, iters=4)
         qpos = torch.arange(S)
         kpos = torch.arange(S)
@@ -326,14 +371,14 @@ def n_valid_slots(attn, pos, S, ring, window, dev) -> int:
 
 
 def check_decode(dec, attn, cfg, dev, cases=DECODE_CASES,
-                 quant_cases=QUANT_CASES, model="qwen3-1.7b"):
+                 quant_cases=QUANT_CASES, model="qwen3-1.7b", S=SERVE_SEQ):
     """K2 on a full cache (query past its end, as serving decodes) and on
     a ring cache with pos > S (``cases``: (label, pos, ring, window)
-    each); K3 on the int8 cache at ``quant_cases`` (the same form), held
-    against its plain version and against the transcription of its
-    arithmetic. Returns the first case's numbers of each."""
+    each) of S slots; K3 on the int8 cache at ``quant_cases`` (the same
+    form), held against its plain version and against the transcription
+    of its arithmetic. Returns the first case's numbers of each."""
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    B, S = SERVE_BATCH, SERVE_SEQ
+    B = SERVE_BATCH
     g = torch.Generator(dev).manual_seed(2)
     r = lambda *s: torch.randn(*s, generator=g, device=dev,
                                dtype=torch.bfloat16)
@@ -574,15 +619,14 @@ def layer_max_abs(transformer, run):
     return [float(x.float().abs().max()) for x in seen]
 
 
-def trajectory(model, params, tokens, plan, steps, feed=None):
-    """Float32 logits (steps + 1, B, vocab) of a prefill of ``tokens`` and
+def trajectory(model, params, batch, plan, steps, feed=None):
+    """Float32 logits (steps + 1, B, vocab) of a prefill of ``batch`` and
     ``steps`` decode steps, each fed ``feed[:, i]`` or, without ``feed``,
     the greedy token; returns them and the tokens fed."""
-    S = tokens.shape[1]
+    S = model.decode_start(batch)
     logits, fed = [], []
     with torch.inference_mode():
-        lg, cache = model.prefill_fn(params, {"tokens": tokens},
-                                     plan.length, plan.ring)
+        lg, cache = model.prefill_fn(params, batch, plan.length, plan.ring)
         for i in range(steps + 1):
             logits.append(lg.float())
             if i == steps:
@@ -594,16 +638,20 @@ def trajectory(model, params, tokens, plan, steps, feed=None):
     return torch.stack(logits), torch.cat(fed, dim=1)
 
 
-def run_model(cfg, dev, B, S, steps, seed, f32_truth=False):
+def run_model(cfg, dev, B, S, steps, seed, f32_truth=False,
+              twice=False):
     """Prefill + ``steps`` greedy decode steps through the kernels, then
     the same tokens through the plain versions. Returns the largest logit
     difference, the largest |logit|, their ratio, and the fraction of
     greedy tokens that agree; for a hybrid model the max |x| after each
-    layer of the kernels' prefill. With ``f32_truth``, the same weights
-    and tokens also go through the kernels and the plain versions in
-    float32: their largest logit difference, and each bf16 path's largest
-    logit difference to the float32 plain logits over their largest
-    |logit|."""
+    layer of the kernels' prefill. A VLM's prompt of S positions is its
+    n_patches patch embeddings (N(0, 1) * 0.02), then S - n_patches
+    tokens. With ``f32_truth``, the same weights and tokens also go
+    through the kernels and the plain versions in float32: their largest
+    logit difference, and each bf16 path's largest logit difference to
+    the float32 plain logits over their largest |logit|. With ``twice``,
+    the kernels' prefill runs twice more on the same batch, and whether
+    the two runs' logits and caches have the same bits."""
     from repro_torch.models import build_model, decode_cache_plan
     from repro_torch.models import transformer
     from repro_torch.models.common import tree_map
@@ -615,21 +663,37 @@ def run_model(cfg, dev, B, S, steps, seed, f32_truth=False):
                                     dev)
     if cfg.family == "hybrid":
         perturb_ssm(params, seed + 1)
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
-                           generator=torch.Generator(dev).manual_seed(seed))
+    g = torch.Generator(dev).manual_seed(seed)
+    n_p = cfg.n_patches if cfg.family == "vlm" else 0
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S - n_p),
+                                     device=dev, generator=g)}
+    if n_p:
+        batch["patch_embeds"] = (torch.randn(B, n_p, cfg.d_model, device=dev,
+                                             generator=g) * 0.02
+                                 ).to(cfg.compute_dtype)
     plan = decode_cache_plan(cfg, S)
     out = {}
     if cfg.family == "hybrid":
         with torch.inference_mode():
             out["max_abs_x_per_layer"] = layer_max_abs(
                 transformer, lambda: kern_model.prefill_fn(
-                    params, {"tokens": tokens}, plan.length, plan.ring))
-    lk, fed = trajectory(kern_model, params, tokens, plan, steps)
+                    params, batch, plan.length, plan.ring))
+    if twice:
+        with torch.inference_mode():
+            runs = [kern_model.prefill_fn(params, batch, plan.length,
+                                          plan.ring) for _ in range(2)]
+        (l1, c1), (l2, c2) = runs
+        out["prefill_twice_bitwise_equal"] = bool(
+            torch.equal(l1.view(torch.int16), l2.view(torch.int16))
+            and all(torch.equal(c1[n].view(torch.uint8),
+                                c2[n].view(torch.uint8)) for n in c1))
+        del runs, l1, c1, l2, c2
+    lk, fed = trajectory(kern_model, params, batch, plan, steps)
     if not bool(torch.isfinite(lk).all()):
         raise AssertionError("non-finite logits")
     if lk.shape != (steps + 1, B, cfg.vocab_size):
         raise AssertionError(f"logits shape {tuple(lk.shape)}")
-    lp, _ = trajectory(plain_model, params, tokens, plan, steps, fed)
+    lp, _ = trajectory(plain_model, params, batch, plan, steps, fed)
     top = float(lp.abs().max())
     out.update(max_logit_diff=max_err(lk, lp), max_abs_logit=top,
                rel=max_err(lk, lp) / max(top, 1e-30),
@@ -640,9 +704,9 @@ def run_model(cfg, dev, B, S, steps, seed, f32_truth=False):
                                     param_dtype="float32")
         p32 = tree_map(lambda t: t.float(), params)
         del params
-        tk, _ = trajectory(build_model(cfg32), p32, tokens, plan, steps, fed)
+        tk, _ = trajectory(build_model(cfg32), p32, batch, plan, steps, fed)
         tp, _ = trajectory(build_model(cfg32, PLAIN_OPS, PLAIN_SCAN_OPS),
-                           p32, tokens, plan, steps, fed)
+                           p32, batch, plan, steps, fed)
         ttop = max(float(tp.abs().max()), 1e-30)
         out.update(f32_max_logit_diff=max_err(tk, tp),
                    kernels_bf16_to_f32=max_err(lk, tp) / ttop,
@@ -790,18 +854,26 @@ def demangle(mangled):
         {m: m for m in mangled}
 
 
-def model_phase(cfg, dev, name):
-    """The full-width bf16 model (kernels against plain, relative logit
-    limit; a hybrid model as HYBRID_MODEL_CHECK says) and its reduced f32
-    configs (absolute limit, greedy tokens all equal)."""
+def model_phase(cfg, dev, name, S=SERVE_SEQ, twice=False, **line):
+    """The full-width bf16 model at S positions (kernels against plain,
+    relative logit limit; a hybrid or MoE model as HYBRID_MODEL_CHECK
+    says) and its reduced f32 configs (absolute limit, greedy tokens all
+    equal).
+    With ``twice``, the full-width kernels' prefill, run twice on the
+    same batch, must give the same bits. ``line`` goes on the full-width
+    model's line (a depth cut and its reason)."""
     t0 = time.monotonic()
-    hybrid = cfg.family == "hybrid"
-    r = run_model(cfg, dev, SERVE_BATCH, SERVE_SEQ, 4, seed=0,
-                  f32_truth=hybrid)
+    by_f32 = cfg.family in POORLY_CONDITIONED
+    r = run_model(cfg, dev, SERVE_BATCH, S, 4, seed=0, f32_truth=by_f32,
+                  twice=twice)
     emit(phase="model", config=f"{name} full width bf16",
-         n_layers=cfg.n_layers, B=SERVE_BATCH, S=SERVE_SEQ, decode_steps=4,
-         rel_tol=BF16_MODEL_REL_TOL, seconds=time.monotonic() - t0, **r)
-    if hybrid:
+         n_layers=cfg.n_layers, B=SERVE_BATCH, S=S, decode_steps=4,
+         rel_tol=BF16_MODEL_REL_TOL, seconds=time.monotonic() - t0,
+         **line, **r)
+    if twice and not r["prefill_twice_bitwise_equal"]:
+        raise AssertionError(f"full-width {name}: two prefills of one "
+                             f"batch differ")
+    if by_f32:
         excess = r["kernels_bf16_to_f32"] - r["plain_bf16_to_f32"]
         if r["f32_max_logit_diff"] >= F32_MODEL_TOL \
                 or excess >= BF16_MODEL_REL_TOL:
@@ -810,10 +882,10 @@ def model_phase(cfg, dev, name):
         raise AssertionError(f"full-width {name}: kernels vs plain logits "
                              f"differ by {r['max_logit_diff']} (max |logit| "
                              f"{r['max_abs_logit']})")
-    kv_cache = cfg.family in ("dense", "hybrid")
-    # hymba's reduced window is 64: at S = 96 its prefill masks by the
-    # window and its decode wraps the ring
-    S_small = 96 if hybrid else 64
+    kv_cache = cfg.family != "ssm"
+    # hymba's and llava's reduced window is 64: at S = 96 their prefill
+    # masks by the window and their decode wraps the ring
+    S_small = 96 if cfg.sliding_window else 64
     for kv_quant in ([False, True] if kv_cache else [None]):
         small = cfg.reduced()
         label = f"{name} reduced f32"
@@ -829,11 +901,70 @@ def model_phase(cfg, dev, name):
                                  f"{agree}")
 
 
-def endpoints(TorchEndpoint, cfg, prefix, dev, seeds):
+def endpoints(TorchEndpoint, cfg, prefix, dev, seeds, serve_seq=SERVE_SEQ):
     return {f"{prefix}-{i}": TorchEndpoint(
-        f"{prefix}-{i}", cfg, seed=s, serve_seq=SERVE_SEQ,
+        f"{prefix}-{i}", cfg, seed=s, serve_seq=serve_seq,
         serve_batch=SERVE_BATCH, decode_steps=DECODE_STEPS, device=dev)
         for i, s in enumerate(seeds)}
+
+
+def release_memory() -> None:
+    """Return freed device memory and the pinned host blocks that the
+    caching host allocator keeps after endpoints are freed (it rounds a
+    block up to a power of two and holds it for reuse), so that the next
+    model's endpoints find the host's memory free."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch._C._host_emptyCache()
+
+
+def pinned_host_bytes() -> dict:
+    """Pinned host bytes the caching host allocator holds now, in its
+    rounded blocks (its ``allocated_bytes`` counters)."""
+    return {k: v for k, v in torch.cuda.host_memory_stats().items()
+            if k.startswith("allocated_bytes") and k.endswith("current")}
+
+
+def serve_attention_model(TorchEndpoint, cfg, name, prefix, dev, wrappers,
+                          ranges, serve_seq=SERVE_SEQ):
+    """Three full-width endpoints of an attention model behind the
+    MQFQ-Sticky wall-clock server, each kernel's count zeroed just
+    before and read just after, as qwen's path is driven: K1 once a
+    layer for each prefill, K2 once a layer for each decode step, K3
+    never; each endpoint's compile() runs a prefill and one step. Then
+    one warm request profiled with ``ranges``. Frees the endpoints and
+    returns the launch counts."""
+    t0 = time.monotonic()
+    eps = endpoints(TorchEndpoint, cfg, prefix, dev, range(3), serve_seq)
+    weight_bytes = eps[f"{prefix}-0"].weight_bytes
+    emit(phase="endpoints", model=name, n=3, weight_bytes=weight_bytes,
+         pinned_weight_bytes=3 * weight_bytes,
+         host_allocator_pinned_bytes=pinned_host_bytes(),
+         cache_plan=str(eps[f"{prefix}-0"].plan), serve_seq=serve_seq,
+         seconds=time.monotonic() - t0)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.monotonic()
+    burst = bursts(prefix)
+    res = serve(eps, burst, 2 * weight_bytes)
+    seconds = time.monotonic() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    n_req = sum(len(b) for b in burst)
+    L, n_warm = cfg.n_layers, len(eps)
+    expected = {"K1": L * (n_req + n_warm),
+                "K2": L * (DECODE_STEPS * n_req + n_warm), "K3": 0}
+    emit(phase="serve", model=name, serve_seq=serve_seq,
+         **serve_summary(res, eps, seconds, n_req), launches=launches,
+         expected_launches=expected)
+    check_served(res, n_req, {k: launches[k] for k in ("K1", "K2")})
+    if launches != expected:
+        raise AssertionError(f"{name} launches {launches}, expected "
+                             f"{expected}")
+    emit(phase="profile", endpoint=f"{prefix}-0", profiler_on=True,
+         **profile_request(eps[f"{prefix}-0"], ranges))
+    del eps, res
+    release_memory()
+    return launches
 
 
 def check_served(res, n_req, launches,
@@ -881,7 +1012,7 @@ def main() -> int:
     from repro_torch.kernels.mlstm_scan import ops as k4
     from repro_torch.kernels.ssm_scan import ops as k5
     from repro_torch.models import attention as attn
-    from repro_torch.models import ssm, transformer, xlstm
+    from repro_torch.models import moe, ssm, transformer, xlstm
     from repro_torch.runtime.device import TorchEndpoint
 
     t_start = time.monotonic()
@@ -924,10 +1055,40 @@ def main() -> int:
     # which the wrappers run as two launches of 8 query heads per kv head
     check_decode(dec, attn, GLM_HEADS, dev, QUANT_CASES, QUANT_CASES,
                  model="chatglm3-6b")
+    # granite-moe-3b-a800m: prefill (24 heads over 8 of dh 64, causal) and
+    # its full serving cache (G 3); llava-next-mistral-7b: prefill of 4096
+    # positions under its 4096 window, decode on its 4096-slot ring after
+    # the 16 serving steps (pos 4096 + 15); deepseek-coder-33b's (G 7) and
+    # qwen1.5-32b's (G 1) heads on qwen's full cache
+    gcfg = get_config("granite-moe-3b-a800m")    # bf16, full width
+    lcfg = get_config("llava-next-mistral-7b")   # bf16, full width
+    check_flash(fl, gcfg, dev, [(SERVE_BATCH, SERVE_SEQ, 0)],
+                model="granite-moe-3b-a800m")
+    check_flash(fl, lcfg, dev, [(SERVE_BATCH, LLAVA_SEQ, lcfg.sliding_window)],
+                model="llava-next-mistral-7b")
+    check_decode(dec, attn, gcfg, dev, QUANT_CASES, QUANT_CASES,
+                 model="granite-moe-3b-a800m")
+    llava_ring = [("ring", LLAVA_SEQ + DECODE_STEPS - 1, True,
+                   lcfg.sliding_window)]
+    check_decode(dec, attn, lcfg, dev, llava_ring, llava_ring,
+                 model="llava-next-mistral-7b", S=LLAVA_SEQ)
+    check_decode(dec, attn, DEEPSEEK_HEADS, dev, QUANT_CASES, QUANT_CASES,
+                 model="deepseek-coder-33b")
+    check_decode(dec, attn, QWEN15_HEADS, dev, QUANT_CASES, QUANT_CASES,
+                 model="qwen1.5-32b")
 
     model_phase(cfg, dev, "qwen3-1.7b")
     model_phase(xcfg, dev, "xlstm-350m")
     model_phase(hcfg, dev, "hymba-1.5b")
+    model_phase(gcfg, dev, "granite-moe-3b-a800m", twice=True)
+    model_phase(lcfg, dev, "llava-next-mistral-7b", S=LLAVA_SEQ)
+    model_phase(dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                                    n_layers=QWEN3_MOE_LAYERS),
+                dev, "qwen3-moe-30b-a3b",
+                cut=f"{QWEN3_MOE_LAYERS} of 48 layers: 60.2 GB of bf16 "
+                    f"weights leave no room for the float32 draw of a "
+                    f"stacked leaf")
+    release_memory()
 
     # -- the main path: serving, through the kernels -------------------------
     t0 = time.monotonic()
@@ -974,7 +1135,7 @@ def main() -> int:
     emit(phase="profile", endpoint="qwen-q8-0", profiler_on=True,
          **profile_request(qep["qwen-q8-0"]))
     del eps, qep, res, qres
-    torch.cuda.empty_cache()
+    release_memory()
 
     # -- the xLSTM path: serving, through K4 ---------------------------------
     t0 = time.monotonic()
@@ -1005,7 +1166,7 @@ def main() -> int:
              "slstm": (xlstm, "slstm_apply"),
              "mlstm": (xlstm, "mlstm_apply")}))
     del xeps, xres
-    torch.cuda.empty_cache()
+    release_memory()
 
     # -- the hymba path: serving, through K1 (window), K2 (ring) and K5 -------
     t0 = time.monotonic()
@@ -1046,6 +1207,29 @@ def main() -> int:
          **profile_request(heps["hymba-0"], {
              "ssm": (ssm, "ssm_apply_seq"),
              "attention": (transformer, "_attn_branch")}))
+    del heps, hres
+    release_memory()
+
+    # -- the MoE and VLM paths: granite and llava, through K1 and K2 ----------
+    attn_wrappers = {"K1": fl.flash_attention, "K2": dec.decode_attention,
+                     "K3": dec.decode_attention_quant}
+    g_launches = serve_attention_model(
+        TorchEndpoint, gcfg, "granite-moe-3b-a800m", "granite", dev,
+        attn_wrappers, {"moe": (moe, "moe_apply"),
+                        "attention": (transformer, "_attn_branch")})
+    l_launches = serve_attention_model(
+        TorchEndpoint, lcfg, "llava-next-mistral-7b", "llava", dev,
+        attn_wrappers, {"attention": (transformer, "_attn_branch")},
+        serve_seq=LLAVA_SEQ)
+    # each path's counts, zeroed just before it and read just after; the
+    # kernels line carries their sums
+    by_path = {"qwen3-1.7b": {k: launches[k] for k in ("K1", "K2", "K3")},
+               "xlstm-350m": {"K4": launches["K4"]},
+               "hymba-1.5b": h_launches,
+               "granite-moe-3b-a800m": g_launches,
+               "llava-next-mistral-7b": l_launches}
+    launches = {k: sum(n.get(k, 0) for n in by_path.values())
+                for k in ("K1", "K2", "K3", "K4", "K5")}
 
     rows = [("K1", "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:95", k1),
@@ -1061,7 +1245,9 @@ def main() -> int:
              "src/repro/kernels/ssm_scan/kernel.py:72", k5m)]
     print(json.dumps({"kernels": [
         dict(name=f"{k} {name}", route="cuda", source=src_,
-             replaces=rep, launches=launches[k], **m)
+             replaces=rep, launches=launches[k],
+             launches_by_path={p: n[k] for p, n in by_path.items()
+                               if k in n}, **m)
         for k, name, src_, rep, m in rows]}), flush=True)
     emit(phase="done", seconds=time.monotonic() - t_start,
          device_ms_spin_retries=spin_retries)

@@ -1,8 +1,9 @@
 """Architecture config registry: ``get_config(arch_id)`` / ``--arch`` ids.
 
-The port serves the dense transformer, Hymba and xLSTM so far. The
-other archs of ``repro.configs`` are known here by name and raise, naming
-the ROADMAP.md item (section 1, "Modules to port") that ports each one.
+The port serves every decoder-only arch of ``repro.configs``: the dense
+transformers, the MoE and VLM members of its family, Hymba and xLSTM.
+Whisper (an encoder-decoder) is known here by name and raises, naming
+the ROADMAP.md item (section 1, "Modules to port") that ports it.
 """
 from __future__ import annotations
 
@@ -15,16 +16,16 @@ _MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "xlstm-350m": "xlstm_350m",
     "hymba-1.5b": "hymba_1_5b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "chatglm3-6b": "chatglm3_6b",
+    "qwen1.5-32b": "qwen1_5_32b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
 }
 
 _NOT_PORTED = {
-    "qwen3-moe-30b-a3b": "item 8 (MoE)",
-    "granite-moe-3b-a800m": "item 8 (MoE)",
     "whisper-large-v3": "item 9 (Whisper)",
-    "llava-next-mistral-7b": "item 10 (VLM and the other dense configs)",
-    "chatglm3-6b": "item 10 (VLM and the other dense configs)",
-    "qwen1.5-32b": "item 10 (VLM and the other dense configs)",
-    "deepseek-coder-33b": "item 10 (VLM and the other dense configs)",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

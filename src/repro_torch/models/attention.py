@@ -1,5 +1,5 @@
-"""Attention: GQA full/causal/sliding-window attention, int8 KV
-quantization, KV caches and cached decode, in plain PyTorch.
+"""Attention: GQA full/causal/sliding-window attention, chunked prefill,
+int8 KV quantization, KV caches and cached decode, in plain PyTorch.
 
 These are the port of ``repro.models.attention`` and the plain versions
 the CUDA kernels are held against. The model (``models.transformer``)
@@ -50,6 +50,22 @@ def masked_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
     w = torch.softmax(s, dim=-1)
     out = _combine(w, v)
     return out.reshape(B, Sq, H, dh)
+
+
+def chunked_attention(q, k, v, q_pos, k_pos, *, causal: bool = True,
+                      window: int = 0, chunk: int = 1024):
+    """Query-chunked attention: peak memory O(chunk * Sk) instead of
+    O(Sq * Sk) for the f32 scores, the same function as
+    ``masked_attention`` (to which it falls back when Sq is not a multiple
+    of ``chunk`` or not above it, as the reference does)."""
+    B, Sq, H, dh = q.shape
+    if Sq % chunk or Sq <= chunk:
+        return masked_attention(q, k, v, q_pos, k_pos,
+                                causal=causal, window=window)
+    return torch.cat([
+        masked_attention(q[:, i:i + chunk], k, v, q_pos[i:i + chunk], k_pos,
+                         causal=causal, window=window)
+        for i in range(0, Sq, chunk)], dim=1)
 
 
 # --- int8 KV quantization (beyond-paper, §Perf H5) -----------------------------

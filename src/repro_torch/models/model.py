@@ -5,11 +5,12 @@
   - ``prefill_fn(params, batch)``                (prompt -> cache)
   - ``decode_fn(params, cache, tokens, pos)``    (serve_step)
   - cache/batch shape planning per input shape
-The dense family, the hybrid family (Hymba: attention and SSM heads in
-each block, whose cache adds the SSM and conv states to the ring kv
-cache) and xLSTM (``family == "ssm"``, whose cache is its recurrent state)
-are ported; the others raise ``NotImplementedError`` naming their
-ROADMAP.md item.
+The dense family, MoE (an expert FFN in each block), the VLM (a prompt
+of patch embeddings, then tokens), the hybrid family (Hymba: attention
+and SSM heads in each block, whose cache adds the SSM and conv states to
+the ring kv cache) and xLSTM (``family == "ssm"``, whose cache is its
+recurrent state) are ported; Whisper raises ``NotImplementedError``
+naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -68,6 +69,7 @@ class Model:
             return xlstm_stack.prefill(self.cfg, params, batch["tokens"],
                                        ops=self.scan_ops)
         return transformer.prefill(self.cfg, params, batch["tokens"],
+                                   patch_embeds=batch.get("patch_embeds"),
                                    cache_len=cache_len, ring=ring,
                                    ops=self.ops)
 
@@ -92,32 +94,57 @@ class Model:
                                       plan.ring, device)
 
     def batch_shapes(self, shape: InputShape) -> Dict[str, Tuple]:
-        """Input tensor shapes/dtypes for a given input shape."""
+        """Input tensor shapes/dtypes for a given input shape: a VLM's
+        ``seq_len`` counts its ``n_patches`` patch embeddings, which come
+        before its tokens."""
+        cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
         itok = torch.int32
         if shape.kind == "decode":
             return {"tokens": ((B, 1), itok)}
-        out: Dict[str, Tuple] = {"tokens": ((B, S), itok)}
+        out: Dict[str, Tuple] = {}
+        s_text = S
+        if cfg.family == "vlm":
+            s_text = S - cfg.n_patches
+            out["patch_embeds"] = ((B, cfg.n_patches, cfg.d_model),
+                                   cfg.compute_dtype)
+        out["tokens"] = ((B, s_text), itok)
         if shape.kind == "train":
-            out["labels"] = ((B, S), itok)
+            out["labels"] = ((B, s_text), itok)
         return out
 
     def make_batch(self, shape: InputShape, generator: torch.Generator,
                    device) -> Dict:
         """Random inputs on ``device``, drawn from ``generator`` (on the
-        same device): token ids uniform in [0, vocab)."""
+        same device) in ``batch_shapes``' order: token ids uniform in
+        [0, vocab), patch embeddings N(0, 1) * 0.02 in float32 cast to the
+        compute dtype."""
         out = {}
         for k, (s, d) in self.batch_shapes(shape).items():
-            out[k] = torch.randint(0, self.cfg.vocab_size, s,
-                                   generator=generator, dtype=d,
-                                   device=device)
+            if d.is_floating_point:
+                out[k] = (torch.randn(s, generator=generator,
+                                      dtype=torch.float32, device=device)
+                          * 0.02).to(d)
+            else:
+                out[k] = torch.randint(0, self.cfg.vocab_size, s,
+                                       generator=generator, dtype=d,
+                                       device=device)
         return out
+
+    def decode_start(self, batch) -> int:
+        """The position of the first decode step after a prefill of
+        ``batch``: its tokens, and a VLM's patch embeddings before them
+        (``repro/runtime/device.py:89-90``)."""
+        pos = batch["tokens"].shape[1]
+        if "patch_embeds" in batch:
+            pos += batch["patch_embeds"].shape[1]
+        return pos
 
 
 def build_model(cfg: ModelConfig,
                 ops: transformer.BlockOps = transformer.KERNEL_OPS,
                 scan_ops: xlstm.ScanOps = xlstm.KERNEL_SCAN_OPS) -> Model:
-    """A dense-family, hybrid or xLSTM model; ``ops`` picks the
+    """A dense, MoE, VLM, hybrid or xLSTM model; ``ops`` picks the
     transformer block's kernels, attention and the hybrid block's SSM scan
     (``transformer.KERNEL_OPS`` or ``PLAIN_OPS``), and ``scan_ops`` the
     mLSTM scan's (``xlstm.KERNEL_SCAN_OPS`` or ``PLAIN_SCAN_OPS``)."""

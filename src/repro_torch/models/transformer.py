@@ -1,5 +1,5 @@
-"""Decoder-only transformer stack, dense and hybrid (attention + SSM)
-branches (port of ``repro.models.transformer``).
+"""Decoder-only transformer stack: dense, MoE, hybrid (attention + SSM)
+and VLM (port of ``repro.models.transformer``).
 
 Layers are stacked on a leading L dim, as in the reference; a Python loop
 over the L slices takes the place of ``jax.lax.scan``. Modes:
@@ -12,6 +12,11 @@ attention to the decode kernels (K2, or K3 under ``kv_quant``) and the
 hybrid block's SSM recurrence to the SSM scan kernel (K5), whose wrappers
 run their plain versions on a CPU tensor; ``PLAIN_OPS`` runs the plain
 versions on any device, as the yardstick the kernels are held against.
+Its prefill follows the reference's chunk rule: above 2 * PREFILL_CHUNK
+positions it attends in query chunks (``attention.chunked_attention``),
+so the f32 score matrix is never whole. K1 never holds the scores and
+stays one launch at any length. An MoE block's FFN is ``moe.moe_apply``;
+a VLM prompt is its patch embeddings followed by its token embeddings.
 
 Unlike the reference's functional updates, prefill fills a fresh cache in
 place and ``decode_step`` writes the new entry into the cache it is given
@@ -32,8 +37,11 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssm_scan import ops as ssm_scan_ops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ParamDef, rms_norm, rope
+
+PREFILL_CHUNK = 1024
 
 
 @dataclass(frozen=True)
@@ -44,22 +52,36 @@ class BlockOps:
     ssm_scan: Callable     # (x, dt, a_log, b, c, d_skip, state) -> (y, st)
 
 
+def prefill_attention_plain(q, k, v, *, causal: bool = True,
+                            window: int = 0):
+    """The plain prefill attention under the reference's chunk rule
+    (``repro/models/transformer.py:112``): query chunks of PREFILL_CHUNK
+    above 2 * PREFILL_CHUNK positions, K1's plain version below."""
+    S = q.shape[1]
+    if S > 2 * PREFILL_CHUNK:
+        pos = torch.arange(S, device=q.device)
+        return attn.chunked_attention(q, k, v, pos, pos, causal=causal,
+                                      window=window, chunk=PREFILL_CHUNK)
+    return flash_ops.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+
+
 KERNEL_OPS = BlockOps(flash_ops.flash_attention,
                       decode_ops.decode_attention,
                       decode_ops.decode_attention_quant,
                       ssm_scan_ops.ssm_scan)
-PLAIN_OPS = BlockOps(flash_ops.flash_attention_plain,
+PLAIN_OPS = BlockOps(prefill_attention_plain,
                      decode_ops.decode_attention_plain,
                      decode_ops.decode_attention_quant_plain,
                      ssm_scan_ops.ssm_scan_plain)
 
 
 def _ported_only(cfg: ModelConfig) -> None:
-    if cfg.is_moe:
+    if cfg.family == "audio":
         raise NotImplementedError(
-            "MoE blocks are not ported to repro_torch yet: ROADMAP.md "
-            "item 8")
-    if cfg.family not in ("dense", "hybrid"):
+            "the audio family (Whisper) is not ported to repro_torch yet: "
+            "ROADMAP.md item 9")
+    if cfg.family not in ("dense", "moe", "hybrid", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet: "
             f"see ROADMAP.md section 1")
@@ -84,9 +106,12 @@ def decoder_param_table(cfg: ModelConfig) -> Dict:
     if cfg.qk_norm:
         layers["q_norm"] = ParamDef((L, dh), (None, None), init="ones")
         layers["k_norm"] = ParamDef((L, dh), (None, None), init="ones")
-    layers["w1"] = ParamDef((L, d, cfg.d_ff), (None, None, "model"))
-    layers["w3"] = ParamDef((L, d, cfg.d_ff), (None, None, "model"))
-    layers["w2"] = ParamDef((L, cfg.d_ff, d), (None, "model", None))
+    if cfg.is_moe:
+        layers.update(moe_mod.moe_param_table(cfg, L))
+    else:
+        layers["w1"] = ParamDef((L, d, cfg.d_ff), (None, None, "model"))
+        layers["w3"] = ParamDef((L, d, cfg.d_ff), (None, None, "model"))
+        layers["w2"] = ParamDef((L, cfg.d_ff, d), (None, "model", None))
     if cfg.family == "hybrid":
         layers.update(ssm_mod.ssm_param_table(cfg, L))
         layers["attn_out_norm"] = ParamDef((L, d), (None, None), init="ones")
@@ -189,7 +214,8 @@ def _attn_branch(cfg: ModelConfig, p, xn, layer_cache, pos, mode,
 def block_apply(cfg: ModelConfig, p, x, layer_cache, pos, mode,
                 ring: bool, ops: BlockOps = KERNEL_OPS):
     """One decoder block; writes its kv entries (and a hybrid block's SSM
-    and conv states) into ``layer_cache``."""
+    and conv states) into ``layer_cache``. An MoE block's aux loss is
+    dropped, as the reference's prefill and decode drop it."""
     xn = rms_norm(x, p["ln1"])
     attn_out = _attn_branch(cfg, p, xn, layer_cache, pos, mode, ring, ops)
     if cfg.family == "hybrid":
@@ -204,7 +230,11 @@ def block_apply(cfg: ModelConfig, p, x, layer_cache, pos, mode,
     else:
         x = x + attn_out
     xn2 = rms_norm(x, p["ln2"])
-    return x + _mlp(cfg, p, xn2)
+    if cfg.is_moe:
+        ffn_out, _ = moe_mod.moe_apply(cfg, p, xn2)
+    else:
+        ffn_out = _mlp(cfg, p, xn2)
+    return x + ffn_out
 
 
 # --- cache --------------------------------------------------------------------
@@ -242,8 +272,10 @@ def _layer(tree: Dict, i: int) -> Dict:
     return {k: t[i] for k, t in tree.items()}
 
 
-def _embed(cfg: ModelConfig, params, tokens):
+def _embed(cfg: ModelConfig, params, tokens, patch_embeds=None):
     x = params["emb"][tokens.long()]
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     return x.to(cfg.compute_dtype)
 
 
@@ -253,12 +285,13 @@ def _unembed(cfg: ModelConfig, params, x):
     return x @ head.to(x.dtype)
 
 
-def prefill(cfg: ModelConfig, params, tokens,
+def prefill(cfg: ModelConfig, params, tokens, patch_embeds=None,
             cache_len: Optional[int] = None, ring: bool = False,
             ops: BlockOps = KERNEL_OPS):
-    """Run the prompt, return (last-position logits, serve cache)."""
+    """Run the prompt (a VLM's: ``patch_embeds`` (B, n_patches, d), then
+    ``tokens``), return (last-position logits, serve cache)."""
     _ported_only(cfg)
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, patch_embeds)
     B, S, _ = x.shape
     cache_len = cache_len or S
     cache = zero_cache(cfg, B, cache_len, ring, x.device)

@@ -6,7 +6,8 @@ weights (pinned CPU memory when the device is a GPU), and the prefill /
 decode steps that run on the hand-written CUDA kernels. For xLSTM the
 cache is the recurrent state (``CachePlan("state", 0)``): prefill
 returns it and each decode step continues from it, ignoring ``pos`` as
-the reference does. It keeps
+the reference does. A VLM's decode starts after its patch embeddings and
+its tokens, at ``s_text + n_patches``, as ``JaxEndpoint``'s does. It keeps
 ``JaxEndpoint``'s duck type, so the control plane's memory "regions" map
 to real bytes here:
 
@@ -117,7 +118,7 @@ class TorchEndpoint:
             logits, cache = self.model.prefill_fn(
                 self.device_params, batch, cache_len=self.plan.length,
                 ring=self.plan.ring)
-            pos = batch["tokens"].shape[1]
+            pos = self.model.decode_start(batch)
             tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
             toks = []
             for i in range(steps):

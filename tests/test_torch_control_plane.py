@@ -5,8 +5,9 @@
 warm pool) and must give identical dispatch order, start types, queue
 state transitions and evictions. (e) A wall-clock ``make_server`` over
 two reduced-qwen3 ``TorchEndpoint(device="cpu")`` drains every request
-with cold and warm starts, and so do two reduced xlstm-350m and two
-reduced hymba-1.5b endpoints (hymba on its ring cache).
+with cold and warm starts, and so do two reduced xlstm-350m, two reduced
+hymba-1.5b (on its ring cache), two reduced granite-moe-3b-a800m (MoE)
+and two reduced llava-next-mistral-7b (VLM) endpoints.
 """
 import heapq
 import importlib
@@ -123,7 +124,8 @@ def test_make_server_refuses_unported_paths():
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "xlstm-350m",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "granite-moe-3b-a800m",
+                                  "llava-next-mistral-7b"])
 def test_wallclock_server_drains_torch_endpoints_on_cpu(arch):
     from repro_torch.configs import get_config
     from repro_torch.runtime.device import TorchEndpoint

@@ -12,7 +12,9 @@ for the mLSTM scan (K4, float32 only) and the SSM scan (K5), whose
 states sum S steps, the largest |difference| in a row over the row's
 largest |plain value| at most 1e-4 in float32; K5's bfloat16 y, rounded
 from float32 on both sides, at most 2**-6 (a rounding flip is at most
-one ulp, 2**-7 of the row's largest value).
+one ulp, 2**-7 of the row's largest value). The MoE layer on the card:
+two runs give the same bits, bf16 within 2e-2 of the float32 experts'
+largest value on the same routing, float32 within 2e-5 of the CPU's.
 This file imports no JAX, so it runs where JAX is absent.
 """
 import pytest
@@ -25,6 +27,7 @@ from repro_torch.kernels.flash_attention import ops as fl  # noqa: E402
 from repro_torch.kernels.mlstm_scan import ops as k4  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as k5  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 DTYPES = ["float32", "bfloat16"]
@@ -101,6 +104,16 @@ def test_flash_kernel_non_causal(gen, dtype, dh, S):
     _check_flash(gen, dtype, 2, S, 4, 2, dh, False, 0)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,KV,dh,window", [
+    (4, 1024, 24, 8, 64, 0),         # granite-moe-3b-a800m's prefill
+    (4, 4096, 32, 8, 128, 4096),     # llava's: a window that never masks
+])
+def test_flash_kernel_at_new_serving_shapes(gen, dtype, B, S, H, KV, dh,
+                                            window):
+    _check_flash(gen, dtype, B, S, H, KV, dh, True, window)
+
+
 DECODE_CASES = [
     (2, 256, 4, 2, 64, 0, False, 100),
     (1, 128, 8, 8, 32, 0, False, 127),
@@ -115,6 +128,16 @@ DECODE_CASES = [
     # after 16 decode steps, and a wrapped ring under a shorter window
     (4, 1024, 25, 5, 64, 1024, True, 1039),
     (2, 64, 25, 5, 64, 16, True, 200),
+    # llava-next-mistral-7b: its 4096-slot ring (window = ring) after 16
+    # decode steps, slot 15 holding position 4111 (512 slots a CTA, many
+    # tiles a warp)
+    (4, 4096, 32, 8, 128, 4096, True, 4111),
+    # granite-moe-3b-a800m's full cache (G 3, dh 64), the query past its
+    # end; deepseek-coder-33b's heads (G 7) and qwen1.5-32b's (G 1, 40 kv
+    # heads)
+    (4, 1024, 24, 8, 64, 0, False, 1039),
+    (4, 1024, 56, 8, 128, 0, False, 1039),
+    (4, 1024, 40, 40, 128, 0, False, 1039),
 ]
 
 
@@ -576,3 +599,61 @@ def test_ssm_dispatch_at_the_chunk_length(gen):
             assert (kernel in names) == chunked, names
         assert ("ssm_scan_kernel" in names) == (not chunked), names
         assert k5.uses_chunks(S) == chunked
+
+
+def _moe_layer(gen, cfg):
+    """One MoE layer of ``cfg`` with random weights on the card (the
+    router float32, the experts in the compute dtype)."""
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda")
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = cfg.compute_dtype
+    return {"router": r(d, E) * d ** -0.5,
+            "we1": (r(E, d, f) * d ** -0.5).to(dt),
+            "we3": (r(E, d, f) * d ** -0.5).to(dt),
+            "we2": (r(E, f, d) * f ** -0.5).to(dt)}
+
+
+def test_moe_apply_is_deterministic_on_the_card(gen):
+    """Full-width granite-moe-3b-a800m, one layer, at its prefill (B 4,
+    S 1024: 32768 pairs, capacity 1025 an expert) and decode (B 4, one
+    token: dropless) in bf16: two runs give the same bits (the combine
+    adds each token's contributions in a fixed order, not by atomics), and
+    the bf16 output is within 2e-2 of its largest value of the float32
+    experts' on the same routing."""
+    from repro_torch.configs import get_config
+    cfg = get_config("granite-moe-3b-a800m")
+    p = _moe_layer(gen, cfg)
+    p32 = {k: v.float() for k, v in p.items()}
+    assert moe.capacity(cfg, 4096) == 1025
+    for S in (1024, 1):
+        x = torch.randn(4, S, cfg.d_model, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        y1, a1 = moe.moe_apply(cfg, p, x)
+        y2, a2 = moe.moe_apply(cfg, p, x)
+        torch.cuda.synchronize()
+        assert torch.equal(y1.view(torch.int16), y2.view(torch.int16))
+        assert float(a1) == float(a2)
+        y32, _ = moe.moe_apply(cfg, p32, x.float())
+        assert _err(y1, y32) <= 2e-2 * float(y32.abs().max())
+
+
+def test_moe_apply_on_the_card_matches_the_cpu(gen):
+    """float32, granite's widths cut to 4 experts of top 2 at T 2080 (4160
+    pairs: capacity 1300), a router tilted to expert 0 so that it
+    overflows: the card's sort, dispatch, drops and combine give the
+    CPU's y within 2e-5 of its largest value."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("granite-moe-3b-a800m").reduced(),
+                              d_model=1536, d_ff=512)
+    p = _moe_layer(gen, cfg)
+    p["router"][:, 0] += 0.05
+    x = torch.randn(2, 1040, cfg.d_model, generator=gen, device="cuda") + 1
+    top = torch.topk(x.reshape(-1, cfg.d_model) @ p["router"], 2).indices
+    assert int(torch.bincount(top.reshape(-1)).max()) > \
+        moe.capacity(cfg, 2080) == 1300
+    y, aux = moe.moe_apply(cfg, p, x)
+    yc, auxc = moe.moe_apply(cfg, {k: v.cpu() for k, v in p.items()},
+                             x.cpu())
+    assert _err(y.cpu(), yc) <= 2e-5 * float(yc.abs().max())
+    assert abs(float(aux) - float(auxc)) < 1e-5

@@ -63,7 +63,10 @@ VERBATIM = ["runtime/invocation.py", "core/flow.py", "core/index.py",
             "faults/plan.py", "faults/inject.py", "faults/__init__.py",
             "server/events.py", "server/metrics.py", "server/control.py",
             "server/stub.py", "configs/qwen3_1_7b.py",
-            "configs/xlstm_350m.py", "configs/hymba_1_5b.py"]
+            "configs/xlstm_350m.py", "configs/hymba_1_5b.py",
+            "configs/granite_moe_3b_a800m.py", "configs/qwen3_moe_30b_a3b.py",
+            "configs/llava_next_mistral_7b.py", "configs/chatglm3_6b.py",
+            "configs/qwen1_5_32b.py", "configs/deepseek_coder_33b.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -101,7 +104,13 @@ def test_configs_match_reference():
     import dataclasses
     from repro.configs import get_config as ref_get
     from repro_torch.configs import ARCH_IDS, get_config
-    assert ARCH_IDS == ["qwen3-1.7b", "xlstm-350m", "hymba-1.5b"]
+    from repro.configs import ARCH_IDS as REF_IDS
+    assert ARCH_IDS == ["qwen3-1.7b", "xlstm-350m", "hymba-1.5b",
+                        "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
+                        "llava-next-mistral-7b", "chatglm3-6b",
+                        "qwen1.5-32b", "deepseek-coder-33b"]
+    # every arch of the reference but the encoder-decoder
+    assert sorted(ARCH_IDS + ["whisper-large-v3"]) == sorted(REF_IDS)
     for arch in ARCH_IDS:
         port, ref = get_config(arch), ref_get(arch)
         assert dataclasses.asdict(port) == dataclasses.asdict(ref), arch
