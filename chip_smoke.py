@@ -23,7 +23,11 @@ exits non-zero:
                and llava-next-mistral-7b (S 4096 under its 4096 window),
                K2 and K3 at granite's full cache (G 3), at llava's
                4096-slot ring and at deepseek-coder-33b's (G 7) and
-               qwen1.5-32b's (G 1) heads; each held against its plain
+               qwen1.5-32b's (G 1) heads; K1 non-causal at the encoder
+               (1500 x 1500) and cross-prefill (432 x 1500) shapes of
+               full-width whisper-large-v3 and causal over its 432-token
+               prompt, K2 and K3 over its 1500-frame cross cache and its
+               432-slot self cache; each held against its plain
                PyTorch version (K3 also against the transcription of its
                arithmetic); kernel, plain and library times, the
                card's bound for the same work, bound_frac (bound / kernel
@@ -31,10 +35,12 @@ exits non-zero:
   4. model   — full-width qwen3-1.7b, xlstm-350m, hymba-1.5b,
                granite-moe-3b-a800m, llava-next-mistral-7b (B 4, S 4096:
                2880 patch embeddings, then 1216 tokens) and
-               qwen3-moe-30b-a3b (8 of its 48 layers) (bf16, random
-               weights from a seed): prefill + 4 decode steps through the
-               kernels and through the plain versions; plus reduced f32
-               configs (each attention model with kv_quant off and on,
+               qwen3-moe-30b-a3b (8 of its 48 layers) and
+               whisper-large-v3 (B 4: 1500 frame embeddings, then 432
+               tokens; with its bf16 paths' distances to float32) (bf16,
+               random weights from a seed): prefill + 4 decode steps
+               through the kernels and through the plain versions; plus
+               reduced f32 configs (each attention model with kv_quant off and on,
                xlstm); granite's prefill run twice must give the same
                bits.
   5. serve   — three full-width qwen3-1.7b TorchEndpoints behind the
@@ -51,8 +57,14 @@ exits non-zero:
                endpoints and three full-width llava-next-mistral-7b
                endpoints (serve_seq 4096) answer 12 requests each, as
                qwen's do, with their launch counts checked and one warm
-               request of each profiled; each model's endpoints are
-               freed, host memory included, before the next's are built.
+               request of each profiled; then three full-width
+               whisper-large-v3 endpoints (serve_seq 432, 1500 frames a
+               request) the same way, K1 96 times a prefill (32 encoder
+               layers, 32 decoder self-, 32 cross-attention) and K2 64
+               times a decode step, one warm request profiled with the
+               encoder and the decoder blocks as ranges; each model's
+               endpoints are freed, host memory included, before the
+               next's are built.
   6. the ``kernels`` line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
@@ -148,6 +160,11 @@ QWEN15_HEADS = types.SimpleNamespace(n_heads=40, n_kv_heads=40, head_dim=128)
 # 4096 slots, its window's length, so the 16 decode steps overwrite
 # exactly the positions the window drops.
 LLAVA_SEQ = 4096
+# whisper-large-v3 serves a decoder prompt of 432 tokens, so the prompt
+# and the 16 decode steps fill 448 positions, the published decoder
+# context (arXiv:2212.04356; src/repro/configs/whisper_large_v3.py), over
+# its 1500 encoder frames
+WHISPER_SEQ = 432
 # qwen3-moe-30b-a3b at full width, cut to 8 of its 48 layers: its 60.2 GB
 # of bf16 weights leave no room on the card for init_params' float32 draw
 # of a stacked leaf (we1 at 48 layers is 38.7 GB in float32; at 8 layers
@@ -305,35 +322,41 @@ def check_kernel(name, out, ref, tol=BF16_ROW_REL_TOL, **case) -> dict:
 
 # --- phase 3: kernels against their plain versions ----------------------------
 
-FLASH_CASES = [(SERVE_BATCH, SERVE_SEQ, 0), (SERVE_BATCH, SERVE_SEQ, 256),
-               (2, 200, 0)]
+FLASH_CASES = [(SERVE_BATCH, SERVE_SEQ, SERVE_SEQ, True, 0),
+               (SERVE_BATCH, SERVE_SEQ, SERVE_SEQ, True, 256),
+               (2, 200, 200, True, 0)]
 
 
 def check_flash(fl, cfg, dev, cases=FLASH_CASES, model="qwen3-1.7b"):
     """K1 at the prefill shape (causal), with a window, and unaligned
-    (``cases``: (B, S, window) each); returns the first case's numbers.
-    The plain version is the model's plain prefill, which above 2048
-    positions attends in query chunks (the reference's chunk rule)."""
+    (``cases``: (B, Sq, Sk, causal, window) each; queries at 0..Sq-1,
+    keys at 0..Sk-1); returns the first case's numbers. The plain version
+    is the model's plain prefill, which above 2048 query positions
+    attends in query chunks (the reference's chunk rule)."""
     from repro_torch.models.transformer import prefill_attention_plain
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = torch.Generator(dev).manual_seed(1)
-    mk = lambda B, S: tuple(
+    mk = lambda B, Sq, Sk: tuple(
         torch.randn(B, S, n, dh, generator=g, device=dev,
-                    dtype=torch.bfloat16) for n in (H, KV, KV))
+                    dtype=torch.bfloat16)
+        for S, n in ((Sq, H), (Sk, KV), (Sk, KV)))
     main = None
-    for B, S, window in cases:
-        q, k, v = mk(B, S)
-        err = check_kernel("K1", fl.flash_attention(q, k, v, window=window),
-                           prefill_attention_plain(q, k, v, window=window),
-                           B=B, S=S, window=window)
-        sets = [mk(B, S) for _ in range(n_sets(2 * nbytes(q, k, v)))]
-        run = lambda q, k, v: fl.flash_attention(q, k, v, window=window)
+    for B, Sq, Sk, causal, window in cases:
+        kw = dict(causal=causal, window=window)
+        q, k, v = mk(B, Sq, Sk)
+        err = check_kernel("K1", fl.flash_attention(q, k, v, **kw),
+                           prefill_attention_plain(q, k, v, **kw),
+                           B=B, Sq=Sq, Sk=Sk, **kw)
+        sets = [mk(B, Sq, Sk) for _ in range(n_sets(2 * nbytes(q, k, v)))]
+        run = lambda q, k, v: fl.flash_attention(q, k, v, **kw)
         kern, kern_host = device_ms(run, sets), host_ms(run, sets)
         plain = device_ms(lambda q, k, v: prefill_attention_plain(
-            q, k, v, window=window), sets, iters=4)
-        qpos = torch.arange(S)
-        kpos = torch.arange(S)
-        valid = kpos[None, :] <= qpos[:, None]
+            q, k, v, **kw), sets, iters=4)
+        qpos = torch.arange(Sq)
+        kpos = torch.arange(Sk)
+        valid = torch.ones(Sq, Sk, dtype=torch.bool)
+        if causal:
+            valid &= kpos[None, :] <= qpos[:, None]
         if window:
             valid &= kpos[None, :] > qpos[:, None] - window
         pairs = int(valid.sum())
@@ -341,14 +364,15 @@ def check_flash(fl, cfg, dev, cases=FLASH_CASES, model="qwen3-1.7b"):
         b_ms, b_by = bound_ms(nbytes(q, k, v) + nbytes(q),
                               4 * B * H * dh * pairs)
         lib = None
-        if not window or window >= S:    # a window that masks nothing
+        if not window or window >= Sq:    # a window that masks nothing
             tsets = [tuple(t.transpose(1, 2).contiguous() for t in s)
                      for s in sets]
             lib = device_ms(lambda q, k, v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), tsets)
+                q, k, v, is_causal=causal, enable_gqa=True), tsets)
         m = dict(**err, **timing(kern, plain, lib, b_ms, b_by))
         emit(phase="kernel", name="K1 flash_attention", model=model, B=B,
-             S=S, H=H, KV=KV, dh=dh, window=window, host_ms=kern_host, **m)
+             S=Sq, Sk=Sk, causal=causal, H=H, KV=KV, dh=dh, window=window,
+             pairs=pairs, host_ms=kern_host, **m)
         if main is None:
             main = m
     return main
@@ -412,7 +436,10 @@ def check_decode(dec, attn, cfg, dev, cases=DECODE_CASES,
         m = dict(**err, **timing(kern, plain, lib, b_ms, b_by))
         emit(phase="kernel", name="K2 decode_attention", model=model,
              cache=label, B=B, S=S, H=H, KV=KV, dh=dh, pos=pos,
-             window=window, valid_slots=n_valid, host_ms=kern_host, **m)
+             window=window, valid_slots=n_valid,
+             cluster_plan=dec.cluster_plan(B, S, KV,
+                                           dec._sm_count(dev.index)),
+             host_ms=kern_host, **m)
         out.setdefault("K2", m)
 
     def mk8():
@@ -447,7 +474,9 @@ def check_decode(dec, attn, cfg, dev, cases=DECODE_CASES,
         emit(phase="kernel", name="K3 decode_attention_quant", model=model,
              cache=f"{label} int8", B=B, S=S, H=H, KV=KV, dh=dh, pos=pos,
              window=window, valid_slots=n_valid,
-             launches_per_call=dec.sub_groups(H // KV), host_ms=kern_host,
+             launches_per_call=dec.sub_groups(H // KV),
+             cluster_plan=dec.quant_plan(B, S, KV, dec._sm_count(dev.index)),
+             host_ms=kern_host,
              row_rel_err_to_as_kernel=as_kernel["max_row_rel_err"], **m)
         out.setdefault("K3", m)
     return out
@@ -646,7 +675,8 @@ def run_model(cfg, dev, B, S, steps, seed, f32_truth=False,
     greedy tokens that agree; for a hybrid model the max |x| after each
     layer of the kernels' prefill. A VLM's prompt of S positions is its
     n_patches patch embeddings (N(0, 1) * 0.02), then S - n_patches
-    tokens. With ``f32_truth``, the same weights and tokens also go
+    tokens; Whisper's prompt is S tokens after its encoder_len frame
+    embeddings (N(0, 1) * 0.02). With ``f32_truth``, the same weights and tokens also go
     through the kernels and the plain versions in float32: their largest
     logit difference, and each bf16 path's largest logit difference to
     the float32 plain logits over their largest |logit|. With ``twice``,
@@ -671,6 +701,10 @@ def run_model(cfg, dev, B, S, steps, seed, f32_truth=False,
         batch["patch_embeds"] = (torch.randn(B, n_p, cfg.d_model, device=dev,
                                              generator=g) * 0.02
                                  ).to(cfg.compute_dtype)
+    if cfg.family == "audio":
+        batch["frames"] = (torch.randn(B, cfg.encoder_len, cfg.d_model,
+                                       device=dev, generator=g) * 0.02
+                           ).to(cfg.compute_dtype)
     plan = decode_cache_plan(cfg, S)
     out = {}
     if cfg.family == "hybrid":
@@ -864,8 +898,11 @@ def model_phase(cfg, dev, name, S=SERVE_SEQ, twice=False, **line):
     model's line (a depth cut and its reason)."""
     t0 = time.monotonic()
     by_f32 = cfg.family in POORLY_CONDITIONED
-    r = run_model(cfg, dev, SERVE_BATCH, S, 4, seed=0, f32_truth=by_f32,
-                  twice=twice)
+    # Whisper is held by the plain rule; its line also carries its bf16
+    # paths' distances to float32, the measure that would move it to
+    # POORLY_CONDITIONED
+    r = run_model(cfg, dev, SERVE_BATCH, S, 4, seed=0,
+                  f32_truth=by_f32 or cfg.family == "audio", twice=twice)
     emit(phase="model", config=f"{name} full width bf16",
          n_layers=cfg.n_layers, B=SERVE_BATCH, S=S, decode_steps=4,
          rel_tol=BF16_MODEL_REL_TOL, seconds=time.monotonic() - t0,
@@ -926,14 +963,16 @@ def pinned_host_bytes() -> dict:
 
 
 def serve_attention_model(TorchEndpoint, cfg, name, prefix, dev, wrappers,
-                          ranges, serve_seq=SERVE_SEQ):
+                          ranges, serve_seq=SERVE_SEQ, k1_per_prefill=None,
+                          k2_per_step=None):
     """Three full-width endpoints of an attention model behind the
     MQFQ-Sticky wall-clock server, each kernel's count zeroed just
-    before and read just after, as qwen's path is driven: K1 once a
-    layer for each prefill, K2 once a layer for each decode step, K3
-    never; each endpoint's compile() runs a prefill and one step. Then
-    one warm request profiled with ``ranges``. Frees the endpoints and
-    returns the launch counts."""
+    before and read just after, as qwen's path is driven: K1
+    ``k1_per_prefill`` times for each prefill, K2 ``k2_per_step`` times
+    for each decode step (both once a layer unless given), K3 never;
+    each endpoint's compile() runs a prefill and one step. Then one warm
+    request profiled with ``ranges``. Frees the endpoints and returns the
+    launch counts."""
     t0 = time.monotonic()
     eps = endpoints(TorchEndpoint, cfg, prefix, dev, range(3), serve_seq)
     weight_bytes = eps[f"{prefix}-0"].weight_bytes
@@ -950,9 +989,11 @@ def serve_attention_model(TorchEndpoint, cfg, name, prefix, dev, wrappers,
     seconds = time.monotonic() - t0
     launches = {k: w.launches for k, w in wrappers.items()}
     n_req = sum(len(b) for b in burst)
-    L, n_warm = cfg.n_layers, len(eps)
-    expected = {"K1": L * (n_req + n_warm),
-                "K2": L * (DECODE_STEPS * n_req + n_warm), "K3": 0}
+    n_warm = len(eps)
+    k1 = k1_per_prefill or cfg.n_layers
+    k2 = k2_per_step or cfg.n_layers
+    expected = {"K1": k1 * (n_req + n_warm),
+                "K2": k2 * (DECODE_STEPS * n_req + n_warm), "K3": 0}
     emit(phase="serve", model=name, serve_seq=serve_seq,
          **serve_summary(res, eps, seconds, n_req), launches=launches,
          expected_launches=expected)
@@ -1012,7 +1053,7 @@ def main() -> int:
     from repro_torch.kernels.mlstm_scan import ops as k4
     from repro_torch.kernels.ssm_scan import ops as k5
     from repro_torch.models import attention as attn
-    from repro_torch.models import moe, ssm, transformer, xlstm
+    from repro_torch.models import moe, ssm, transformer, whisper, xlstm
     from repro_torch.runtime.device import TorchEndpoint
 
     t_start = time.monotonic()
@@ -1045,8 +1086,8 @@ def main() -> int:
     # hymba's attention: prefill under its 1024 window, decode on its
     # 1024-slot ring after the 16 serving steps (pos 1024 + 15)
     window = hcfg.sliding_window
-    check_flash(fl, hcfg, dev, [(SERVE_BATCH, SERVE_SEQ, window)],
-                model="hymba-1.5b")
+    check_flash(fl, hcfg, dev, [(SERVE_BATCH, SERVE_SEQ, SERVE_SEQ, True,
+                                 window)], model="hymba-1.5b")
     ring_case = [("ring", SERVE_SEQ + DECODE_STEPS - 1, True, window)]
     check_decode(dec, attn, hcfg, dev, ring_case, ring_case,
                  model="hymba-1.5b")
@@ -1062,9 +1103,10 @@ def main() -> int:
     # qwen1.5-32b's (G 1) heads on qwen's full cache
     gcfg = get_config("granite-moe-3b-a800m")    # bf16, full width
     lcfg = get_config("llava-next-mistral-7b")   # bf16, full width
-    check_flash(fl, gcfg, dev, [(SERVE_BATCH, SERVE_SEQ, 0)],
+    check_flash(fl, gcfg, dev, [(SERVE_BATCH, SERVE_SEQ, SERVE_SEQ, True, 0)],
                 model="granite-moe-3b-a800m")
-    check_flash(fl, lcfg, dev, [(SERVE_BATCH, LLAVA_SEQ, lcfg.sliding_window)],
+    check_flash(fl, lcfg, dev, [(SERVE_BATCH, LLAVA_SEQ, LLAVA_SEQ, True,
+                                 lcfg.sliding_window)],
                 model="llava-next-mistral-7b")
     check_decode(dec, attn, gcfg, dev, QUANT_CASES, QUANT_CASES,
                  model="granite-moe-3b-a800m")
@@ -1076,6 +1118,25 @@ def main() -> int:
                  model="deepseek-coder-33b")
     check_decode(dec, attn, QWEN15_HEADS, dev, QUANT_CASES, QUANT_CASES,
                  model="qwen1.5-32b")
+    # whisper-large-v3 (20 heads of dh 64 over 20 kv heads, G 1): K1
+    # non-causal over its 1500 frames (the encoder, 1500 x 1500; 1500 keys
+    # leave a 28-key tail block) and from the decoder prompt (the cross
+    # prefill, 432 x 1500), causal over the prompt; K2 and K3 over its
+    # 1500-frame cross cache (one query over every frame: pos 1499) and
+    # its 432-slot self cache after the 16 serving steps (pos 447), whose
+    # CTA chunks end mid-tile
+    wcfg = get_config("whisper-large-v3")       # bf16, full width
+    E = wcfg.encoder_len
+    check_flash(fl, wcfg, dev, [(SERVE_BATCH, E, E, False, 0),
+                                (SERVE_BATCH, WHISPER_SEQ, E, False, 0),
+                                (SERVE_BATCH, WHISPER_SEQ, WHISPER_SEQ, True,
+                                 0)], model="whisper-large-v3")
+    cross = [("cross", E - 1, False, 0)]
+    check_decode(dec, attn, wcfg, dev, cross, cross,
+                 model="whisper-large-v3", S=E)
+    self_cache = [("full", WHISPER_SEQ + DECODE_STEPS - 1, False, 0)]
+    check_decode(dec, attn, wcfg, dev, self_cache, self_cache,
+                 model="whisper-large-v3", S=WHISPER_SEQ)
 
     model_phase(cfg, dev, "qwen3-1.7b")
     model_phase(xcfg, dev, "xlstm-350m")
@@ -1088,6 +1149,7 @@ def main() -> int:
                 cut=f"{QWEN3_MOE_LAYERS} of 48 layers: 60.2 GB of bf16 "
                     f"weights leave no room for the float32 draw of a "
                     f"stacked leaf")
+    model_phase(wcfg, dev, "whisper-large-v3", S=WHISPER_SEQ)
     release_memory()
 
     # -- the main path: serving, through the kernels -------------------------
@@ -1221,13 +1283,24 @@ def main() -> int:
         TorchEndpoint, lcfg, "llava-next-mistral-7b", "llava", dev,
         attn_wrappers, {"attention": (transformer, "_attn_branch")},
         serve_seq=LLAVA_SEQ)
+    # whisper: per prefill K1 for each encoder layer and for each decoder
+    # layer's self- and cross-attention (96), per decode step K2 for each
+    # decoder layer's self- and cross-attention (64)
+    w_launches = serve_attention_model(
+        TorchEndpoint, wcfg, "whisper-large-v3", "whisper", dev,
+        attn_wrappers, {"encode": (whisper, "encode"),
+                        "decoder_block": (whisper, "_dec_block")},
+        serve_seq=WHISPER_SEQ,
+        k1_per_prefill=wcfg.n_encoder_layers + 2 * wcfg.n_layers,
+        k2_per_step=2 * wcfg.n_layers)
     # each path's counts, zeroed just before it and read just after; the
     # kernels line carries their sums
     by_path = {"qwen3-1.7b": {k: launches[k] for k in ("K1", "K2", "K3")},
                "xlstm-350m": {"K4": launches["K4"]},
                "hymba-1.5b": h_launches,
                "granite-moe-3b-a800m": g_launches,
-               "llava-next-mistral-7b": l_launches}
+               "llava-next-mistral-7b": l_launches,
+               "whisper-large-v3": w_launches}
     launches = {k: sum(n.get(k, 0) for n in by_path.values())
                 for k in ("K1", "K2", "K3", "K4", "K5")}
 

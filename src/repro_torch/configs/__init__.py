@@ -1,9 +1,8 @@
 """Architecture config registry: ``get_config(arch_id)`` / ``--arch`` ids.
 
-The port serves every decoder-only arch of ``repro.configs``: the dense
-transformers, the MoE and VLM members of its family, Hymba and xLSTM.
-Whisper (an encoder-decoder) is known here by name and raises, naming
-the ROADMAP.md item (section 1, "Modules to port") that ports it.
+The port serves every arch of ``repro.configs``: the dense transformers,
+the MoE and VLM members of its family, Hymba, xLSTM and Whisper (the
+encoder-decoder).
 """
 from __future__ import annotations
 
@@ -22,20 +21,13 @@ _MODULES = {
     "chatglm3-6b": "chatglm3_6b",
     "qwen1.5-32b": "qwen1_5_32b",
     "deepseek-coder-33b": "deepseek_coder_33b",
-}
-
-_NOT_PORTED = {
-    "whisper-large-v3": "item 9 (Whisper)",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to repro_torch yet: "
-            f"ROADMAP.md {_NOT_PORTED[arch_id]}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")

@@ -10,10 +10,11 @@ Example:
 ``--archs`` takes any arch of ``repro_torch.configs.ARCH_IDS``: the
 reference's default set above, granite-moe-3b-a800m and qwen3-moe-30b-a3b
 (MoE), llava-next-mistral-7b (VLM: each request's prompt is n_patches
-random patch embeddings, then tokens), chatglm3-6b, qwen1.5-32b and
-deepseek-coder-33b; whisper-large-v3 raises (ROADMAP.md item 9). The
-simulator mode (``--mode sim``) is not ported yet (ROADMAP.md section 1,
-item 14).
+random patch embeddings, then tokens), chatglm3-6b, qwen1.5-32b,
+deepseek-coder-33b and whisper-large-v3 (encoder-decoder: each request
+is encoder_len random frame embeddings, which the encoder reads, then
+the decoder's prompt of tokens). The simulator mode (``--mode sim``) is
+not ported yet (ROADMAP.md section 1, item 14).
 """
 from __future__ import annotations
 

@@ -93,6 +93,16 @@ def rms_norm(x, w, eps: float = 1e-6):
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+def layer_norm(x, w, b, eps: float = 1e-5):
+    # as rms_norm: f32 mean and (biased) variance, normalised and cast
+    # back to x's dtype before the weight and bias
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * w + b
+
+
 def rope(x, positions, theta: float, partial: bool = False):
     """Rotary embedding. x: (..., S, H, dh); positions: (S,) or (B, S).
 

@@ -8,9 +8,10 @@
 The dense family, MoE (an expert FFN in each block), the VLM (a prompt
 of patch embeddings, then tokens), the hybrid family (Hymba: attention
 and SSM heads in each block, whose cache adds the SSM and conv states to
-the ring kv cache) and xLSTM (``family == "ssm"``, whose cache is its
-recurrent state) are ported; Whisper raises ``NotImplementedError``
-naming its ROADMAP.md item.
+the ring kv cache), xLSTM (``family == "ssm"``, whose cache is its
+recurrent state) and Whisper (``family == "audio"``: a batch of frame
+embeddings, then the decoder prompt; a self and a cross kv cache) are
+ported.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, transformer, xlstm, xlstm_stack
+from repro_torch.models import common, transformer, whisper, xlstm, \
+    xlstm_stack
 from repro_torch.shapes import InputShape
 
 
@@ -58,6 +60,11 @@ class Model:
         """The cache is the recurrent state (xLSTM)."""
         return self.cfg.family == "ssm"
 
+    @property
+    def audio(self) -> bool:
+        """An encoder-decoder over frame embeddings (Whisper)."""
+        return self.cfg.family == "audio"
+
     # -- parameters ------------------------------------------------------
     def init_params(self, generator: torch.Generator, device) -> Dict:
         return common.init_params(self.param_table, self.cfg, generator,
@@ -68,6 +75,10 @@ class Model:
         if self.stateful:
             return xlstm_stack.prefill(self.cfg, params, batch["tokens"],
                                        ops=self.scan_ops)
+        if self.audio:
+            return whisper.prefill(self.cfg, params, batch["tokens"],
+                                   batch["frames"], cache_len=cache_len,
+                                   ops=self.ops)
         return transformer.prefill(self.cfg, params, batch["tokens"],
                                    patch_embeds=batch.get("patch_embeds"),
                                    cache_len=cache_len, ring=ring,
@@ -77,6 +88,9 @@ class Model:
         if self.stateful:
             return xlstm_stack.decode_step(self.cfg, params, cache, tokens,
                                            pos, ops=self.scan_ops)
+        if self.audio:
+            return whisper.decode_step(self.cfg, params, cache, tokens, pos,
+                                       ops=self.ops)
         return transformer.decode_step(self.cfg, params, cache, tokens, pos,
                                        ring=ring, ops=self.ops)
 
@@ -84,19 +98,24 @@ class Model:
     def cache_shapes(self, batch: int, plan: CachePlan):
         if self.stateful:
             return xlstm_stack.state_shapes(self.cfg, batch)
+        if self.audio:
+            return whisper.cache_shapes(self.cfg, batch, plan.length)
         return transformer.cache_shapes(self.cfg, batch, plan.length,
                                         plan.ring)
 
     def zero_cache(self, batch: int, plan: CachePlan, device) -> Dict:
         if self.stateful:
             return xlstm_stack.zero_state(self.cfg, batch, device)
+        if self.audio:
+            return whisper.zero_cache(self.cfg, batch, plan.length, device)
         return transformer.zero_cache(self.cfg, batch, plan.length,
                                       plan.ring, device)
 
     def batch_shapes(self, shape: InputShape) -> Dict[str, Tuple]:
         """Input tensor shapes/dtypes for a given input shape: a VLM's
         ``seq_len`` counts its ``n_patches`` patch embeddings, which come
-        before its tokens."""
+        before its tokens; Whisper's ``frames`` (B, encoder_len, d_model)
+        come before its tokens and are not counted."""
         cfg = self.cfg
         B, S = shape.global_batch, shape.seq_len
         itok = torch.int32
@@ -108,6 +127,9 @@ class Model:
             s_text = S - cfg.n_patches
             out["patch_embeds"] = ((B, cfg.n_patches, cfg.d_model),
                                    cfg.compute_dtype)
+        if cfg.family == "audio":
+            out["frames"] = ((B, cfg.encoder_len, cfg.d_model),
+                             cfg.compute_dtype)
         out["tokens"] = ((B, s_text), itok)
         if shape.kind == "train":
             out["labels"] = ((B, s_text), itok)
@@ -117,8 +139,8 @@ class Model:
                    device) -> Dict:
         """Random inputs on ``device``, drawn from ``generator`` (on the
         same device) in ``batch_shapes``' order: token ids uniform in
-        [0, vocab), patch embeddings N(0, 1) * 0.02 in float32 cast to the
-        compute dtype."""
+        [0, vocab), patch embeddings and frames N(0, 1) * 0.02 in float32
+        cast to the compute dtype."""
         out = {}
         for k, (s, d) in self.batch_shapes(shape).items():
             if d.is_floating_point:
@@ -134,7 +156,8 @@ class Model:
     def decode_start(self, batch) -> int:
         """The position of the first decode step after a prefill of
         ``batch``: its tokens, and a VLM's patch embeddings before them
-        (``repro/runtime/device.py:89-90``)."""
+        (``repro/runtime/device.py:89-90``); Whisper's frames go to the
+        encoder and shift no decoder position."""
         pos = batch["tokens"].shape[1]
         if "patch_embeds" in batch:
             pos += batch["patch_embeds"].shape[1]
@@ -144,10 +167,13 @@ class Model:
 def build_model(cfg: ModelConfig,
                 ops: transformer.BlockOps = transformer.KERNEL_OPS,
                 scan_ops: xlstm.ScanOps = xlstm.KERNEL_SCAN_OPS) -> Model:
-    """A dense, MoE, VLM, hybrid or xLSTM model; ``ops`` picks the
-    transformer block's kernels, attention and the hybrid block's SSM scan
-    (``transformer.KERNEL_OPS`` or ``PLAIN_OPS``), and ``scan_ops`` the
-    mLSTM scan's (``xlstm.KERNEL_SCAN_OPS`` or ``PLAIN_SCAN_OPS``)."""
+    """A dense, MoE, VLM, hybrid, xLSTM or Whisper model; ``ops`` picks
+    the attention kernels of a transformer or Whisper block and the hybrid
+    block's SSM scan (``transformer.KERNEL_OPS`` or ``PLAIN_OPS``), and
+    ``scan_ops`` the mLSTM scan's (``xlstm.KERNEL_SCAN_OPS`` or
+    ``PLAIN_SCAN_OPS``)."""
     if cfg.family == "ssm":
         return Model(cfg, xlstm_stack.param_table(cfg), ops, scan_ops)
+    if cfg.family == "audio":
+        return Model(cfg, whisper.whisper_param_table(cfg), ops, scan_ops)
     return Model(cfg, transformer.decoder_param_table(cfg), ops, scan_ops)

@@ -55,13 +55,16 @@ class BlockOps:
 def prefill_attention_plain(q, k, v, *, causal: bool = True,
                             window: int = 0):
     """The plain prefill attention under the reference's chunk rule
-    (``repro/models/transformer.py:112``): query chunks of PREFILL_CHUNK
-    above 2 * PREFILL_CHUNK positions, K1's plain version below."""
-    S = q.shape[1]
-    if S > 2 * PREFILL_CHUNK:
-        pos = torch.arange(S, device=q.device)
-        return attn.chunked_attention(q, k, v, pos, pos, causal=causal,
-                                      window=window, chunk=PREFILL_CHUNK)
+    (``repro/models/transformer.py:112``, ``repro/models/whisper.py:89``):
+    query chunks of PREFILL_CHUNK above 2 * PREFILL_CHUNK query positions,
+    K1's plain version below. Queries sit at 0..Sq-1 and keys at
+    0..Sk-1, as K1 places them (Whisper's cross-attention has Sq != Sk)."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    if Sq > 2 * PREFILL_CHUNK:
+        return attn.chunked_attention(
+            q, k, v, torch.arange(Sq, device=q.device),
+            torch.arange(Sk, device=q.device), causal=causal, window=window,
+            chunk=PREFILL_CHUNK)
     return flash_ops.flash_attention_plain(q, k, v, causal=causal,
                                            window=window)
 
@@ -77,10 +80,6 @@ PLAIN_OPS = BlockOps(prefill_attention_plain,
 
 
 def _ported_only(cfg: ModelConfig) -> None:
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            "the audio family (Whisper) is not ported to repro_torch yet: "
-            "ROADMAP.md item 9")
     if cfg.family not in ("dense", "moe", "hybrid", "vlm"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet: "

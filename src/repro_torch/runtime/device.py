@@ -7,7 +7,9 @@ decode steps that run on the hand-written CUDA kernels. For xLSTM the
 cache is the recurrent state (``CachePlan("state", 0)``): prefill
 returns it and each decode step continues from it, ignoring ``pos`` as
 the reference does. A VLM's decode starts after its patch embeddings and
-its tokens, at ``s_text + n_patches``, as ``JaxEndpoint``'s does. It keeps
+its tokens, at ``s_text + n_patches``, as ``JaxEndpoint``'s does; Whisper's
+after its tokens (its frames feed the encoder), over a full self cache of
+``serve_seq`` slots and a cross cache of ``encoder_len``. It keeps
 ``JaxEndpoint``'s duck type, so the control plane's memory "regions" map
 to real bytes here:
 

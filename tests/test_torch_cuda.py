@@ -15,6 +15,9 @@ from float32 on both sides, at most 2**-6 (a rounding flip is at most
 one ulp, 2**-7 of the row's largest value). The MoE layer on the card:
 two runs give the same bits, bf16 within 2e-2 of the float32 experts'
 largest value on the same routing, float32 within 2e-5 of the CPU's.
+At Whisper's shapes (K1 non-causal with Sq != Sk, K2/K3 over its cross
+and self caches) bfloat16 rows within 2**-6 of each row's largest value,
+float32 within 2e-5.
 This file imports no JAX, so it runs where JAX is absent.
 """
 import pytest
@@ -356,6 +359,70 @@ def test_k3_wrapper_refuses_what_the_kernel_does_not_take(gen):
         dec.decode_attention_quant(q, k_off, ks, k_off, ks, 3)
     with pytest.raises(ValueError, match="CUDA"):
         dec.decode_attention_quant(q, k8.cpu(), ks, k8, ks, 3)
+
+
+# whisper-large-v3 (20 heads of dh 64 over 20 kv heads, G 1): K1
+# non-causal with Sq != Sk (the encoder's 1500 x 1500; the decoder
+# prefill's cross-attention, 432 queries over 1500 frames, whose 1500 keys
+# leave a 28-key tail block of 64); K2 and K3 over its 1500-frame cross
+# cache (one query over every frame: pos 1499) and its 432-slot self
+# cache after 16 decode steps, whose cluster_plan chunks (375 and 108
+# slots on 132 SMs; K3's 215 and 62) are not multiples of the 32-slot
+# tile, so a CTA's range ends mid-tile
+
+def _check_rows(out, ref, dt):
+    if dt == torch.bfloat16:
+        assert _row_rel(out.float(), ref.float()) <= 2.0 ** -6
+    else:
+        assert _err(out, ref) < 2e-5
+
+
+def _check_flash_cross(gen, dtype, B, Sq, Sk, H, KV, dh):
+    dt = getattr(torch, dtype)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda", dtype=dt)
+    q, k, v = r(B, Sq, H, dh), r(B, Sk, KV, dh), r(B, Sk, KV, dh)
+    before = fl.flash_attention.launches
+    out = fl.flash_attention(q, k, v, causal=False)
+    ref = fl.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fl.flash_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    _check_rows(out, ref, dt)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,Sq,Sk", [(4, 432, 1500), (4, 1500, 1500)])
+def test_flash_kernel_at_whisper_shapes(gen, dtype, B, Sq, Sk):
+    _check_flash_cross(gen, dtype, B, Sq, Sk, 20, 20, 64)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("Sq,Sk", [(1, 100), (7, 100), (40, 100),
+                                   (150, 100), (1, 1500), (65, 1500)])
+def test_flash_kernel_non_causal_cross(gen, dtype, dh, Sq, Sk):
+    """Fewer queries than keys and more, key counts off the key block."""
+    _check_flash_cross(gen, dtype, 2, Sq, Sk, 4, 2, dh)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,S,H,KV,dh,pos", [
+    (4, 1500, 20, 20, 64, 1499),   # whisper's cross cache
+    (4, 432, 20, 20, 64, 447),     # its self cache, the query past its end
+    (2, 300, 3, 3, 128, 299),      # 8 CTAs of 38 slots, the last of 34
+])
+def test_decode_kernels_at_whisper_caches(gen, dtype, B, S, H, KV, dh, pos):
+    dt = getattr(torch, dtype)
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda", dtype=dt)
+    q, ck, cv = r(B, 1, H, dh), r(B, S, KV, dh), r(B, S, KV, dh)
+    before = dec.decode_attention.launches
+    out = dec.decode_attention(q, ck, cv, pos)
+    ref = dec.decode_attention_plain(q, ck, cv, pos)
+    torch.cuda.synchronize()
+    assert dec.decode_attention.launches == before + 1
+    assert out.dtype == dt and out.shape == q.shape
+    _check_rows(out, ref, dt)
+    _check_k3(gen, dtype, B, S, H, KV, dh, 0, False, pos)
 
 
 def _scan_inputs(gen, B, S, H, dh):

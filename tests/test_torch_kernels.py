@@ -63,6 +63,28 @@ def test_flash_plain_vs_pallas_and_model(B, S, H, KV, dh, causal, window):
     assert _diff(out, model) < 2e-5
 
 
+@pytest.mark.parametrize("Sq,Sk", [(1, 100), (7, 100), (40, 100),
+                                   (150, 100)])
+@pytest.mark.parametrize("H,KV,dh", [(4, 4, 64), (4, 2, 32)])
+def test_flash_plain_cross_vs_pallas_and_model(Sq, Sk, H, KV, dh):
+    """Non-causal with Sq != Sk (Whisper's cross-attention): queries at
+    0..Sq-1 over keys at 0..Sk-1, fewer queries than keys and more."""
+    rng = np.random.default_rng(Sq * 100 + Sk + dh)
+    B = 2
+    q = _normal(rng, (B, Sq, H, dh))
+    k, v = _normal(rng, (B, Sk, KV, dh)), _normal(rng, (B, Sk, KV, dh))
+    out = fl.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v), causal=False)
+    assert out.shape == (B, Sq, H, dh) and out.dtype == torch.float32
+    pal = pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       causal=False)
+    model = ref_attn.masked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.arange(Sq),
+        jnp.arange(Sk), causal=False)
+    assert _diff(out, pal) < 2e-5
+    assert _diff(out, model) < 2e-5
+
+
 def test_flash_plain_bf16():
     rng = np.random.default_rng(1)
     q, k, v = (_normal(rng, (1, 128, n, 64)) for n in (4, 2, 2))
@@ -340,3 +362,21 @@ def test_k3_kernel_arithmetic_matches_pallas_and_oracle(
     else:
         assert _row_rel(out, pal) <= 2.0 ** -6
         assert _row_rel(out, oracle) <= 2.0 ** -6
+
+
+@pytest.mark.parametrize("B,S,KV,k2,k3", [
+    (4, 1500, 20, (4, 375), (7, 215)),   # whisper-large-v3's cross cache
+    (4, 432, 20, (4, 108), (7, 62)),     # its self cache
+    (4, 1024, 8, (8, 128), (8, 128)),    # qwen3-1.7b's, on the tile
+])
+def test_cluster_plans_at_whisper_caches(B, S, KV, k2, k3):
+    """K2's and K3's launch plans on the H100's 132 SMs: at Whisper's
+    caches each CTA's chunk ends mid-tile (not a multiple of SLOT_TILE),
+    K3's in a cluster of 7; every slot is covered, every CTA's range is
+    non-empty."""
+    for plan, want in ((dec.cluster_plan, k2), (dec.quant_plan, k3)):
+        n, chunk = plan(B, S, KV, 132)
+        assert (n, chunk) == want
+        assert (n - 1) * chunk < S <= n * chunk
+    if S != 1024:
+        assert k2[1] % dec.SLOT_TILE and k3[1] % dec.SLOT_TILE

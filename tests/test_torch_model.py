@@ -140,7 +140,7 @@ def test_param_table_and_init_match_reference_layout():
     std = float(params["layers"]["wq"].std())
     assert abs(std - d ** -0.5) < 0.1 * d ** -0.5
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(dataclasses.replace(cfg, family="audio"))
+        build_model(dataclasses.replace(cfg, family="retnet"))
 
 
 def test_rms_norm_and_rope_match_reference():
