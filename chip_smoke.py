@@ -65,7 +65,23 @@ exits non-zero:
                encoder and the decoder blocks as ranges; each model's
                endpoints are freed, host memory included, before the
                next's are built.
-  6. the ``kernels`` line, the nvidia-smi line, and last
+  6. train   — the training path (``repro_torch.training``), which runs
+               the plain versions under autograd and no kernel:
+               full-width qwen3-1.7b in bf16 at train_4k's sequence
+               length (S 4096; B 4 in 2 microbatches, cut from 256), 4
+               Trainer steps on MarkovLM batches, each step's loss, grad
+               norm, lr, seconds and tokens/s, the peak device memory,
+               one profiled step's busy time and idle share, and every
+               parameter's grad finite after one backward; the first
+               step's loss and grad norm in bf16 against float32 at 4 of
+               its 28 layers; 3 Trainer steps of reduced qwen3 and
+               granite-moe in float32 on the card against the CPU; the
+               ``small`` preset of ``repro_torch.examples.train_lm``,
+               which must learn; a checkpoint saved and restored on the
+               card bit for bit (bf16 and float32 leaves); every kernel
+               wrapper's count unchanged across the phase, and each
+               wrapper refusing an input that requires grad.
+  7. the ``kernels`` line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -74,6 +90,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -81,6 +98,7 @@ import time
 import types
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -170,6 +188,23 @@ WHISPER_SEQ = 432
 # of a stacked leaf (we1 at 48 layers is 38.7 GB in float32; at 8 layers
 # 6.4 GB)
 QWEN3_MOE_LAYERS = 8
+# training: qwen3-1.7b at full width and depth in bf16 at train_4k's
+# sequence length (src/repro_torch/shapes.py); its global batch of 256
+# sequences is cut to 4, taken as 2 microbatches of 2
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICROBATCH, TRAIN_STEPS = 4096, 4, 2, 4
+# bf16 against float32 on the same weights and batch (full width, 4 of
+# 28 layers, B 2): the first step's loss within 2% and its grad norm
+# within 10% (relative)
+TRAIN_F32_LAYERS = 4
+TRAIN_LOSS_REL_TOL, TRAIN_GNORM_REL_TOL = 2e-2, 1e-1
+# the card against the CPU, float32, 3 Trainer steps from the same
+# weights on the same batches: losses at 1e-5 relative; the parameters
+# at 1e-4 of each leaf's largest |p| but for at most 1e-4 of all entries
+# (where some step's grad lies near eps or near the two sides' grad
+# error AdamW's update, m_hat / sqrt(v_hat), may move by its whole size),
+# and those within 2 * (lr summed over the steps)
+TRAIN_PARITY_LOSS_REL, TRAIN_PARITY_P_TOL, TRAIN_PARITY_LOOSE = \
+    1e-5, 1e-4, 1e-4
 
 
 def emit(**kw) -> None:
@@ -637,9 +672,9 @@ def layer_max_abs(transformer, run):
     seen = []
 
     def recorded(*a, **kw):
-        x = block_apply(*a, **kw)
+        x, aux = block_apply(*a, **kw)
         seen.append(x)
-        return x
+        return x, aux
     transformer.block_apply = recorded
     try:
         run()
@@ -749,7 +784,7 @@ def run_model(cfg, dev, B, S, steps, seed, f32_truth=False,
     return out
 
 
-# --- phase 5: serving -----------------------------------------------------------
+# --- phase 5: serving ---------------------------------------------------------
 
 def serve(endpoints, bursts, capacity_bytes):
     """Submit ``bursts`` (lists of endpoint ids) to a wall-clock
@@ -1035,6 +1070,298 @@ def serve_summary(res, eps, seconds, n_req):
                 p50_latency_s=lats[len(lats) // 2], max_latency_s=lats[-1])
 
 
+# --- phase 6: training --------------------------------------------------------
+
+def train_steps(tr, data, steps):
+    """``steps`` single-step ``Trainer.fit`` calls, each timed to a
+    synchronize; one record of metrics and seconds per step."""
+    out = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        tr.fit(data, 1, verbose=False)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        h = tr.history[-1]
+        out.append(dict(step=h["step"], loss=h["loss"],
+                        grad_norm=h["grad_norm"], lr=h["lr"], seconds=dt))
+    return out
+
+
+def all_grads_finite(model, params, batch) -> int:
+    """One backward of ``model.loss_fn``: every parameter leaf gets a
+    finite grad; returns the number of leaves."""
+    from repro_torch.models.common import tree_leaves
+    leaves = list(tree_leaves(params))
+    loss, _ = model.loss_fn(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    bad = [i for i, g in enumerate(grads)
+           if g is None or not bool(torch.isfinite(g).all())]
+    if bad or not bool(torch.isfinite(loss)):
+        raise AssertionError(f"loss {float(loss)}; leaves without a finite "
+                             f"grad: {bad}")
+    return len(leaves)
+
+
+def train_full_width(cfg, dev):
+    """Full-width bf16 training at S 4096: TRAIN_STEPS Trainer steps of
+    TRAIN_BATCH sequences in TRAIN_MICROBATCH chunks, the peak memory,
+    one profiled step."""
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, DataConfig, Trainer, \
+        batches
+    t0 = time.monotonic()
+    model = build_model(cfg)
+    tr = Trainer(model, AdamWConfig(), log_every=1,
+                 microbatch=TRAIN_MICROBATCH, device=dev)
+    tr.init(seed=0)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                    batch_size=TRAIN_BATCH, seed=0)
+    data = batches(dc)
+    try:
+        first = {k: torch.from_numpy(v[:TRAIN_BATCH // TRAIN_MICROBATCH])
+                 .to(dev) for k, v in next(data).items()}
+        n_leaves = all_grads_finite(model, tr.params, first)
+        del first
+        init_s = time.monotonic() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        steps = train_steps(tr, data, TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated(dev)
+        wall = []
+
+        def one_step():
+            t1 = time.monotonic()
+            tr.fit(data, 1, verbose=False)
+            torch.cuda.synchronize()
+            wall.append(time.monotonic() - t1)
+        by_name, _ = profiled(one_step)
+    finally:
+        data.close()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for st in steps:
+        st["tokens_per_s"] = tokens / st["seconds"]
+        if not (math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])):
+            raise AssertionError(f"non-finite training step: {st}")
+    busy = sum(by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    emit(phase="train", config="qwen3-1.7b full width bf16",
+         n_layers=cfg.n_layers, S=TRAIN_SEQ, B=TRAIN_BATCH,
+         microbatch=TRAIN_MICROBATCH,
+         cut=f"batch {TRAIN_BATCH} of train_4k's 256 sequences",
+         n_param_leaves=n_leaves, every_leaf_grad_finite=True,
+         init_and_grad_check_s=init_s, steps=steps,
+         peak_allocated_bytes=peak,
+         profiled_step=dict(
+             wall_s=wall[0], device_busy_s=busy if by_name else None,
+             idle_share=1.0 - busy / wall[0] if by_name else None,
+             top_kernels_ms=[[n[:90], us / 1e3] for n, us in top],
+             gemm_device_ms=sum(us for n, us in by_name.items()
+                                if GEMM_NAME.search(n)) / 1e3),
+         seconds=time.monotonic() - t0)
+    del tr, model
+    release_memory()
+
+
+def train_bf16_vs_f32(cfg, dev):
+    """The first step's loss and grad norm in bf16 and in float32 on the
+    same weights and batch, at full width and TRAIN_F32_LAYERS layers."""
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.training import DataConfig, MarkovLM
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.training.trainer import trainable
+    t0 = time.monotonic()
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model = build_model(cfg)
+    base = model.init_params(torch.Generator(dev).manual_seed(1), dev)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                    batch_size=TRAIN_BATCH // TRAIN_MICROBATCH, seed=1)
+    toks = torch.from_numpy(MarkovLM(dc).sample(
+        np.random.default_rng(2), dc.batch_size, dc.seq_len)).to(dev)
+    batch = {"tokens": toks, "labels": toks}
+    out = {}
+    for name, c, conv in [("bf16", cfg, lambda t: t),
+                          ("f32", cfg32, lambda t: t.float())]:
+        params = trainable(tree_map(conv, base))
+        loss, _ = build_model(c).loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, list(tree_leaves(params)))
+        out[name] = (float(loss.detach()),
+                     float(global_norm(dict(enumerate(grads)))))
+        del params, loss, grads
+    (lb, gb), (lf, gf) = out["bf16"], out["f32"]
+    line = dict(loss_bf16=lb, loss_f32=lf, loss_rel=abs(lb - lf) / abs(lf),
+                loss_rel_tol=TRAIN_LOSS_REL_TOL, grad_norm_bf16=gb,
+                grad_norm_f32=gf, grad_norm_rel=abs(gb - gf) / abs(gf),
+                grad_norm_rel_tol=TRAIN_GNORM_REL_TOL)
+    emit(phase="train",
+         config=f"qwen3-1.7b full width, {TRAIN_F32_LAYERS} of 28 layers, "
+                f"bf16 vs float32", S=TRAIN_SEQ, B=dc.batch_size, **line,
+         seconds=time.monotonic() - t0)
+    if not (line["loss_rel"] <= TRAIN_LOSS_REL_TOL
+            and line["grad_norm_rel"] <= TRAIN_GNORM_REL_TOL):
+        raise AssertionError(f"bf16 training loss off its float32: {line}")
+    del base, model
+    release_memory()
+
+
+def params_close_after_adamw(want_tree, got_tree, lr_sum) -> dict:
+    """TRAIN_PARITY_P_TOL of each leaf's largest |p| for all but a
+    TRAIN_PARITY_LOOSE share of the entries, every entry within
+    2 * lr_sum (see TRAIN_PARITY_*)."""
+    from repro_torch.models.common import tree_leaves
+    n_loose = n_all = 0
+    worst = 0.0
+    for want, got in zip(tree_leaves(want_tree), tree_leaves(got_tree)):
+        want, got = want.detach().float().cpu(), got.detach().float().cpu()
+        diff = (got - want).abs()
+        worst = max(worst, float(diff.max()))
+        n_loose += int((diff > TRAIN_PARITY_P_TOL
+                        * float(want.abs().max())).sum())
+        n_all += diff.numel()
+    ok = worst <= 2 * lr_sum and n_loose <= TRAIN_PARITY_LOOSE * n_all
+    return dict(max_abs_param_diff=worst, n_loose=n_loose, n_entries=n_all,
+                params_ok=ok)
+
+
+def train_card_vs_cpu(arch, dev):
+    """3 float32 Trainer steps of a reduced config on the card and on the
+    CPU from the same weights on the same batches; returns the card's
+    Trainer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, DataConfig, Trainer, \
+        batches
+    t0 = time.monotonic()
+    cfg = get_config(arch).reduced()
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, batch_size=4,
+                    seed=5)
+    cpu = Trainer(build_model(cfg), opt_cfg, log_every=1, device="cpu")
+    cpu.init(seed=0)
+    card = Trainer(build_model(cfg), opt_cfg, log_every=1, device=dev)
+    card.init(params=cpu.params)
+    for tr in (cpu, card):
+        data = batches(dc)
+        tr.fit(data, 3, verbose=False)
+        data.close()
+    losses = [(h["loss"], c["loss"]) for h, c in zip(cpu.history,
+                                                       card.history)]
+    loss_rel = max(abs(b - a) / abs(a) for a, b in losses)
+    close = params_close_after_adamw(cpu.params, card.params,
+                                     sum(h["lr"] for h in cpu.history))
+    emit(phase="train", config=f"{arch} reduced f32, card vs cpu", steps=3,
+         losses_cpu=[a for a, _ in losses], losses_card=[b for _, b in losses],
+         max_loss_rel=loss_rel, loss_rel_tol=TRAIN_PARITY_LOSS_REL,
+         param_tol=TRAIN_PARITY_P_TOL, loose_share_tol=TRAIN_PARITY_LOOSE,
+         **close, seconds=time.monotonic() - t0)
+    if loss_rel > TRAIN_PARITY_LOSS_REL or not close["params_ok"]:
+        raise AssertionError(f"{arch}: card and CPU training differ")
+    return card
+
+
+def checkpoint_round_trip(trainers, dev) -> None:
+    """Save each Trainer's {"params", "opt"} from the card and restore it
+    onto the card: the same bits, every leaf."""
+    from repro_torch.training import checkpoint as ckpt
+    path = str(ROOT / "build" / "train_ckpt.npz")
+    n = {"bfloat16": 0, "float32": 0, "int32": 0}
+    for tr in trainers:
+        state = {"params": tr.params, "opt": tr.opt_state}
+        ckpt.save(path, state, tr.step)
+        back, step = ckpt.restore(path, state)
+        for (k, a), (_, b) in zip(ckpt.keyed_leaves(state),
+                                  ckpt.keyed_leaves(back)):
+            if not (b.device == a.device and b.dtype == a.dtype
+                    and torch.equal(a.detach().reshape(-1).view(torch.uint8),
+                                    b.reshape(-1).view(torch.uint8))):
+                raise AssertionError(f"checkpoint leaf {k} changed")
+            n[str(a.dtype).split(".")[-1]] += 1
+        if step != tr.step:
+            raise AssertionError("checkpoint step changed")
+    os.remove(path)
+    emit(phase="train", check="checkpoint save/restore on the card",
+         bitwise_equal=True, leaves_by_dtype=n)
+
+
+def guard_refuses(dev, wrappers) -> list:
+    """Every kernel wrapper, given a CUDA input that requires grad under
+    grad mode, raises instead of returning a detached result."""
+    from repro_torch.kernels.decode_attention import ops as dec
+    from repro_torch.kernels.flash_attention import ops as fl
+    from repro_torch.kernels.mlstm_scan import ops as k4
+    from repro_torch.kernels.ssm_scan import ops as k5
+    r = lambda *s: torch.randn(*s, device=dev)
+    q, kv, q1 = r(1, 64, 2, 64), r(1, 64, 1, 64), r(1, 1, 2, 64)
+    c8, sc, g = torch.zeros(1, 64, 1, 64, dtype=torch.int8, device=dev), \
+        torch.ones(1, 64, 1, device=dev), r(1, 64, 2)
+    x, bc = r(1, 64, 2, 16), r(1, 64, 8)
+    calls = {"K1": lambda t: fl.flash_attention(t, kv, kv),
+             "K2": lambda t: dec.decode_attention(t[:, :1], kv, kv, 3),
+             "K3": lambda t: dec.decode_attention_quant(t[:, :1], c8, sc, c8,
+                                                        sc, 3),
+             "K4": lambda t: k4.mlstm_scan(t, t, t, g, g),
+             "K5": lambda t: k5.ssm_scan(x, g.abs(), torch.zeros(
+                 2, device=dev), bc, bc, torch.ones(2, device=dev), t)}
+    args = {"K1": q, "K2": q1, "K3": q1, "K4": q,
+            "K5": torch.zeros(1, 2, 16, 8, device=dev)}
+    refused = []
+    for name, call in calls.items():
+        before = wrappers[name].launches
+        try:
+            call(args[name].clone().requires_grad_())
+        except RuntimeError as e:
+            if "requires grad" in str(e) and \
+                    wrappers[name].launches == before:
+                refused.append(name)
+                continue
+            raise
+        raise AssertionError(f"{name} took an input that requires grad")
+    return refused
+
+
+def train_phase(cfg, dev, wrappers) -> None:
+    """Phase 6 (see the module's docstring)."""
+    from repro_torch.examples import train_lm
+    t_phase = time.monotonic()
+    before = {k: w.launches for k, w in wrappers.items()}
+    release_memory()
+    train_full_width(cfg, dev)
+    train_bf16_vs_f32(cfg, dev)
+    cards = [train_card_vs_cpu(a, dev)
+             for a in ("qwen3-1.7b", "granite-moe-3b-a800m")]
+    # a bf16 reduced run, so that the checkpoint holds bf16 leaves
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, DataConfig, Trainer, \
+        batches
+    bcfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                               dtype="bfloat16", param_dtype="bfloat16")
+    btr = Trainer(build_model(bcfg), AdamWConfig(), log_every=1, device=dev)
+    btr.init(seed=0)
+    data = batches(DataConfig(vocab_size=bcfg.vocab_size, seq_len=64,
+                              batch_size=4, seed=6))
+    btr.fit(data, 1, verbose=False)
+    data.close()
+    checkpoint_round_trip(cards + [btr], dev)
+    t0 = time.monotonic()
+    last = train_lm.main(["--device", str(dev)])
+    emit(phase="train", config="repro_torch.examples.train_lm small",
+         final_loss=last["loss"], limit=0.6 * last["ln_v"],
+         data_floor=last["floor"], steps=last["step"],
+         seconds=time.monotonic() - t0)
+    after = {k: w.launches for k, w in wrappers.items()}
+    refused = guard_refuses(dev, wrappers)
+    emit(phase="train", check="no kernel launched while training",
+         launches_before=before, launches_after=after,
+         refuse_autograd=refused, seconds=time.monotonic() - t_phase)
+    if after != before:
+        raise AssertionError(f"kernels launched while training: {before} "
+                             f"-> {after}")
+    del cards, btr
+    release_memory()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -1293,6 +1620,12 @@ def main() -> int:
         serve_seq=WHISPER_SEQ,
         k1_per_prefill=wcfg.n_encoder_layers + 2 * wcfg.n_layers,
         k2_per_step=2 * wcfg.n_layers)
+    # -- the training path: plain versions under autograd, no kernel ---------
+    train_phase(cfg, dev, {"K1": fl.flash_attention,
+                           "K2": dec.decode_attention,
+                           "K3": dec.decode_attention_quant,
+                           "K4": k4.mlstm_scan, "K5": k5.ssm_scan})
+
     # each path's counts, zeroed just before it and read just after; the
     # kernels line carries their sums
     by_path = {"qwen3-1.7b": {k: launches[k] for k in ("K1", "K2", "K3")},

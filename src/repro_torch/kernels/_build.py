@@ -126,6 +126,23 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise if autograd would record any of ``tensors``. The kernels are
+    forward-only (the reference's Pallas kernels have no VJP either) and
+    write through raw pointers into fresh outputs, so their results carry
+    no graph: a loss through them would give no gradient to anything
+    upstream, without an error. The check holds on every device, so a
+    training path that reaches a wrapper fails in the CPU tests as it
+    would on the card; training runs the plain versions
+    (``transformer.PLAIN_OPS``, ``xlstm.PLAIN_SCAN_OPS``)."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{what}: an input requires grad, and the kernel has no "
+            f"backward; run the plain version under autograd")
+
+
 def count_launch(wrapper) -> None:
     """Add one to a wrapper's ``launches`` (workers of the wall-clock
     server launch from several threads)."""

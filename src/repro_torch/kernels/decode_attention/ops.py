@@ -175,7 +175,9 @@ def _launch(name, plan, q, caches, pos, window, ring):
 def decode_attention(q, cache_k, cache_v, pos, *, window: int = 0,
                      ring: bool = False):
     """Decode attention over a bf16/f32 cache: K2 on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    plain version on a CPU tensor; raises if autograd would record an
+    input."""
+    _build.refuse_autograd("decode_attention", q, cache_k, cache_v)
     if q.device.type == "cpu":
         return decode_attention_plain(q, cache_k, cache_v, pos,
                                       window=window, ring=ring)
@@ -189,7 +191,9 @@ def decode_attention(q, cache_k, cache_v, pos, *, window: int = 0,
 def decode_attention_quant(q, cache_k, k_scale, cache_v, v_scale, pos, *,
                            window: int = 0, ring: bool = False):
     """Decode attention over an int8 cache: K3 on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    version on a CPU tensor; raises if autograd would record an input."""
+    _build.refuse_autograd("decode_attention_quant", q, cache_k, k_scale,
+                           cache_v, v_scale)
     if q.device.type == "cpu":
         return decode_attention_quant_plain(q, cache_k, k_scale, cache_v,
                                             v_scale, pos, window=window,

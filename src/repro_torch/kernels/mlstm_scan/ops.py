@@ -149,7 +149,9 @@ def _check(q, k, v, ig, fg, state) -> None:
 
 def mlstm_scan(q, k, v, ig, fg, state=None):
     """The mLSTM scan: K4 on a CUDA tensor, the plain version on a CPU
-    tensor. Returns (h, (C, n, m))."""
+    tensor. Returns (h, (C, n, m)). Raises if autograd would record an
+    input."""
+    _build.refuse_autograd("mlstm_scan", q, k, v, ig, fg, *(state or ()))
     if q.device.type == "cpu":
         return mlstm_scan_plain(q, k, v, ig, fg, state)
     _check(q, k, v, ig, fg, state)

@@ -1,4 +1,5 @@
-"""Shared model machinery: parameter tables, norms, RoPE, initializers.
+"""Shared model machinery: parameter tables, norms, RoPE, initializers,
+the training loss and activation recomputation.
 
 A model is described by a *parameter table*: a nested dict of ``ParamDef``
 (the layout of ``repro.models.common``). ``init_params`` draws the
@@ -12,6 +13,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclass(frozen=True)
@@ -75,6 +77,16 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def unstack(tree: Dict, n: int):
+    """The ``n`` slices of a tree of stacked (leading dim ``n``) tensors,
+    one tree each. Slices by ``unbind``, whose backward stacks the slices'
+    gradients once, where ``t[i]`` would add a zero-padded full-size
+    gradient per slice."""
+    parts = {k: unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 def tree_leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -123,3 +135,47 @@ def rope(x, positions, theta: float, partial: bool = False):
     y = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                   dim=-1).to(x.dtype)
     return torch.cat([y, x_pass], dim=-1) if partial else y
+
+
+def cross_entropy(logits, labels, ignore: int = -1):
+    """Mean CE over non-ignored positions, in float32, as
+    ``repro.models.common.cross_entropy``. logits (..., V), labels (...)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long().clamp_min(0)[..., None])
+    mask = (labels != ignore).float()
+    loss = (lse - ll[..., 0]) * mask
+    return loss.sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+# --- activation recomputation -------------------------------------------------
+
+def remat(fn, *args):
+    """``fn(*args)``; while autograd records, its activations are dropped
+    and recomputed in the backward, where the reference wraps the same
+    computation in ``jax.checkpoint``."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+TIME_CHUNK = 64    # steps per recomputed chunk of a recurrent scan
+
+
+def time_chunks(fn, seqs, carry):
+    """``fn(*seqs, carry) -> (ys, carry)`` over the time axis (dim 1 of
+    every tensor of ``seqs`` and of ``ys``). While autograd records and S
+    is a multiple of TIME_CHUNK above it, the scan runs chunk by chunk,
+    each chunk under ``remat``, as the reference's
+    ``xlstm._chunked_time_scan`` and ``ssm.ssm_apply_seq`` do: the
+    backward keeps a carry per chunk instead of per step. The same steps
+    in the same order either way."""
+    S = seqs[0].shape[1]
+    if not (torch.is_grad_enabled() and S % TIME_CHUNK == 0
+            and S > TIME_CHUNK):
+        return fn(*seqs, carry)
+    ys = []
+    for t in range(0, S, TIME_CHUNK):
+        y, carry = remat(fn, *[s[:, t:t + TIME_CHUNK] for s in seqs], carry)
+        ys.append(y)
+    return torch.cat(ys, dim=1), carry

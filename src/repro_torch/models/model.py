@@ -2,6 +2,7 @@
 
 ``build_model(cfg)`` returns a ``Model`` exposing:
   - ``init_params(generator, device)``           (parameters on a device)
+  - ``loss_fn(params, batch)``                   (training)
   - ``prefill_fn(params, batch)``                (prompt -> cache)
   - ``decode_fn(params, cache, tokens, pos)``    (serve_step)
   - cache/batch shape planning per input shape
@@ -71,6 +72,32 @@ class Model:
                                   device)
 
     # -- steps ------------------------------------------------------------
+    def loss_fn(self, params, batch):
+        """(loss, {"ce", "aux"}) of a batch with ``labels``, as the
+        reference's ``_tf_loss``, ``_whisper_loss`` and ``_xlstm_loss``:
+        the next-token CE of the logits, plus 0.01 * the MoE aux loss for
+        the transformer families (a VLM's patch positions dropped first).
+        The kernels are forward-only, so this runs the plain versions
+        (``transformer.PLAIN_OPS``, ``xlstm.PLAIN_SCAN_OPS``) whatever
+        ``ops`` the model serves with."""
+        cfg, tokens = self.cfg, batch["tokens"]
+        if self.stateful:
+            logits, aux = xlstm_stack.forward(cfg, params, tokens,
+                                              xlstm.PLAIN_SCAN_OPS)
+        elif self.audio:
+            logits, aux = whisper.forward(cfg, params, tokens,
+                                          batch["frames"],
+                                          transformer.PLAIN_OPS)
+        else:
+            pe = batch.get("patch_embeds")
+            logits, aux = transformer.forward(cfg, params, tokens, pe,
+                                              transformer.PLAIN_OPS)
+            if pe is not None:
+                logits = logits[:, pe.shape[1]:]
+        ce = common.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+        loss = ce if self.stateful or self.audio else ce + 0.01 * aux
+        return loss, {"ce": ce, "aux": aux}
+
     def prefill_fn(self, params, batch, cache_len=None, ring=False):
         if self.stateful:
             return xlstm_stack.prefill(self.cfg, params, batch["tokens"],

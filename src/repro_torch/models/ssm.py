@@ -1,12 +1,14 @@
 """Selective-state-space (Mamba-style) heads for the hybrid (Hymba) arch
-(port of ``repro.models.ssm``, serving only: no training).
+(port of ``repro.models.ssm``).
 
 Per-head scalar decay A, state size N (= cfg.ssm_state), depthwise causal
 conv front-end. The recurrence runs through the scan the caller passes:
 the model passes its ops' ``ssm_scan``, which is the SSM scan kernel (K5,
-``kernels/ssm_scan``) or its plain version. The reference's two-level
-chunked time scan exists for reverse-mode memory and computes the same
-sum, so a single scan takes its place here.
+``kernels/ssm_scan``) or its plain version (training: the kernel is
+forward-only). The reference's two-level chunked time scan exists for
+reverse-mode memory and computes the same sum: here the scan runs whole,
+and in chunks recomputed in the backward while autograd records
+(``common.time_chunks``).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import ParamDef
+from repro_torch.models.common import ParamDef, time_chunks
 
 
 def ssm_param_table(cfg: ModelConfig, L: int) -> Dict[str, ParamDef]:
@@ -63,9 +65,10 @@ def _ssm_step(state, inputs, A):
 
 def ssm_apply_seq(cfg: ModelConfig, p, x, state, conv_state,
                   scan: Callable):
-    """Full sequence (prefill) or one token (decode). x (B,S,d) -> y
-    (B,S,d), new ssm state, new conv state. ``scan`` is K5's signature:
-    (x, dt, a_log, b, c, d_skip, state) -> (y with the D skip, state)."""
+    """Full sequence (training, prefill) or one token (decode). x (B,S,d)
+    -> y (B,S,d), new ssm state, new conv state. ``scan`` is K5's
+    signature: (x, dt, a_log, b, c, d_skip, state) -> (y with the D skip,
+    state)."""
     B, S, d = x.shape
     Hs, Ps = cfg.ssm_heads, cfg.ssm_head_dim
     xin = x @ p["in_proj"]
@@ -74,7 +77,10 @@ def ssm_apply_seq(cfg: ModelConfig, p, x, state, conv_state,
     dt = F.softplus((x @ p["dt_proj"]) + p["dt_bias"]).float()
     Bt = (x @ p["b_proj"]).float()
     Ct = (x @ p["c_proj"]).float()
-    y, state = scan(xc, dt, p["a_log"], Bt, Ct, p["d_skip"], state)
+    y, state = time_chunks(
+        lambda x_, dt_, b_, c_, st: scan(x_, dt_, p["a_log"], b_, c_,
+                                         p["d_skip"], st),
+        (xc, dt, Bt, Ct), state)
     y = y.to(x.dtype).reshape(B, S, Hs * Ps)
     return y @ p["out_proj"], state, new_conv
 

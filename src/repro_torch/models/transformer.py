@@ -3,6 +3,7 @@ and VLM (port of ``repro.models.transformer``).
 
 Layers are stacked on a leading L dim, as in the reference; a Python loop
 over the L slices takes the place of ``jax.lax.scan``. Modes:
+  - train:   full sequence, no cache (``forward``, training)
   - prefill: full sequence, returns the KV cache (full or ring)
   - decode:  one token against the cache (serve_step)
 
@@ -17,6 +18,11 @@ positions it attends in query chunks (``attention.chunked_attention``),
 so the f32 score matrix is never whole. K1 never holds the scores and
 stays one launch at any length. An MoE block's FFN is ``moe.moe_apply``;
 a VLM prompt is its patch embeddings followed by its token embeddings.
+
+The kernels are forward-only, as the reference's are, and their wrappers
+refuse inputs that autograd records: ``forward`` (training) runs
+``PLAIN_OPS`` under autograd, with each block recomputed in the backward
+(``common.remat``), the reference's ``jax.checkpoint`` per block.
 
 Unlike the reference's functional updates, prefill fills a fresh cache in
 place and ``decode_step`` writes the new entry into the cache it is given
@@ -39,7 +45,8 @@ from repro_torch.kernels.ssm_scan import ops as ssm_scan_ops
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.common import ParamDef, rms_norm, rope
+from repro_torch.models.common import (ParamDef, remat, rms_norm, rope,
+                                       unstack)
 
 PREFILL_CHUNK = 1024
 
@@ -156,10 +163,11 @@ def _attn_branch(cfg: ModelConfig, p, xn, layer_cache, pos, mode,
                  ring: bool, ops: BlockOps):
     B, S, _ = xn.shape
     window = cfg.sliding_window
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         positions = torch.arange(S, device=xn.device)
         q, k, v = _qkv(cfg, p, xn, positions)
         out = ops.prefill(q, k, v, causal=True, window=window)
+    if mode == "prefill":
         ck, cv = layer_cache["k"], layer_cache["v"]
         if cfg.kv_quant:
             k, sk = attn.quantize_kv(k)
@@ -178,7 +186,7 @@ def _attn_branch(cfg: ModelConfig, p, xn, layer_cache, pos, mode,
             if cfg.kv_quant:
                 attn.cache_write_full(layer_cache["k_scale"],
                                       layer_cache["v_scale"], sk, sv, 0)
-    else:  # decode
+    elif mode == "decode":
         positions = torch.full((1,), pos, dtype=torch.int64,
                                device=xn.device)
         q, k, v = _qkv(cfg, p, xn, positions)
@@ -212,28 +220,40 @@ def _attn_branch(cfg: ModelConfig, p, xn, layer_cache, pos, mode,
 
 def block_apply(cfg: ModelConfig, p, x, layer_cache, pos, mode,
                 ring: bool, ops: BlockOps = KERNEL_OPS):
-    """One decoder block; writes its kv entries (and a hybrid block's SSM
-    and conv states) into ``layer_cache``. An MoE block's aux loss is
-    dropped, as the reference's prefill and decode drop it."""
+    """One decoder block. Returns (x, aux): an MoE block's load-balance
+    loss, else None (the callers of prefill and decode drop it, as the
+    reference's do). Prefill and decode write the block's kv entries (and
+    a hybrid block's SSM and conv states) into ``layer_cache``; ``mode ==
+    "train"`` takes no cache and writes nothing, and a hybrid block's SSM
+    heads start from zero states."""
     xn = rms_norm(x, p["ln1"])
     attn_out = _attn_branch(cfg, p, xn, layer_cache, pos, mode, ring, ops)
     if cfg.family == "hybrid":
+        if mode == "train":
+            st = ssm_mod.ssm_state_shapes(cfg, x.shape[0])
+            ssm_state, conv_state = (
+                torch.zeros(s, dtype=d, device=x.device)
+                for s, d in (st["ssm_state"], st["conv_state"]))
+        else:
+            ssm_state = layer_cache["ssm_state"]
+            conv_state = layer_cache["conv_state"]
         # the SSM heads read the same normed input as attention
         ssm_out, ssm_state, conv_state = ssm_mod.ssm_apply_seq(
-            cfg, p, xn, layer_cache["ssm_state"], layer_cache["conv_state"],
-            ops.ssm_scan)
-        layer_cache["ssm_state"].copy_(ssm_state)
-        layer_cache["conv_state"].copy_(conv_state)
+            cfg, p, xn, ssm_state, conv_state, ops.ssm_scan)
+        if mode != "train":
+            layer_cache["ssm_state"].copy_(ssm_state)
+            layer_cache["conv_state"].copy_(conv_state)
         x = x + 0.5 * (rms_norm(attn_out, p["attn_out_norm"])
                        + rms_norm(ssm_out, p["ssm_out_norm"]))
     else:
         x = x + attn_out
     xn2 = rms_norm(x, p["ln2"])
+    aux = None
     if cfg.is_moe:
-        ffn_out, _ = moe_mod.moe_apply(cfg, p, xn2)
+        ffn_out, aux = moe_mod.moe_apply(cfg, p, xn2)
     else:
         ffn_out = _mlp(cfg, p, xn2)
-    return x + ffn_out
+    return x + ffn_out, aux
 
 
 # --- cache --------------------------------------------------------------------
@@ -284,6 +304,25 @@ def _unembed(cfg: ModelConfig, params, x):
     return x @ head.to(x.dtype)
 
 
+def forward(cfg: ModelConfig, params, tokens, patch_embeds=None,
+            ops: BlockOps = PLAIN_OPS):
+    """Teacher-forced logits over the full sequence (a VLM's: its patch
+    embeddings, then its tokens) and the summed MoE aux loss (float32
+    zero for the other families): the training forward. Each block is
+    recomputed in the backward (``common.remat``)."""
+    _ported_only(cfg)
+    x = _embed(cfg, params, tokens, patch_embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def block(p, x):
+        return block_apply(cfg, p, x, None, 0, "train", False, ops)
+    for p in unstack(params["layers"], cfg.n_layers):
+        x, a = remat(block, p, x)
+        if a is not None:
+            aux = aux + a
+    return _unembed(cfg, params, x), aux
+
+
 def prefill(cfg: ModelConfig, params, tokens, patch_embeds=None,
             cache_len: Optional[int] = None, ring: bool = False,
             ops: BlockOps = KERNEL_OPS):
@@ -295,8 +334,8 @@ def prefill(cfg: ModelConfig, params, tokens, patch_embeds=None,
     cache_len = cache_len or S
     cache = zero_cache(cfg, B, cache_len, ring, x.device)
     for i in range(cfg.n_layers):
-        x = block_apply(cfg, _layer(params["layers"], i), x,
-                        _layer(cache, i), 0, "prefill", ring, ops)
+        x, _ = block_apply(cfg, _layer(params["layers"], i), x,
+                           _layer(cache, i), 0, "prefill", ring, ops)
     logits = _unembed(cfg, params, x[:, -1:])
     return logits[:, 0], cache
 
@@ -308,7 +347,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int,
     _ported_only(cfg)
     x = _embed(cfg, params, tokens)
     for i in range(cfg.n_layers):
-        x = block_apply(cfg, _layer(params["layers"], i), x,
-                        _layer(cache, i), pos, "decode", ring, ops)
+        x, _ = block_apply(cfg, _layer(params["layers"], i), x,
+                           _layer(cache, i), pos, "decode", ring, ops)
     logits = _unembed(cfg, params, x)
     return logits[:, 0], cache

@@ -16,7 +16,8 @@ Sq = the prompt, Sk = encoder_len) run on K1; a decode step's
 self-attention runs on K2 over the self cache and its cross-attention,
 one query over every frame, on K2 at ``pos = encoder_len - 1`` over the
 full cross cache (so every slot is valid); under ``kv_quant`` both run
-on K3 over the int8 caches. ``PLAIN_OPS`` runs the plain versions.
+on K3 over the int8 caches. ``PLAIN_OPS`` runs the plain versions;
+``forward`` (training) runs them by default, under autograd.
 
 The serve cache holds the self k/v (``k``, ``v``: ``cache_len`` slots)
 and the cross k/v (``ck``, ``cv``: ``encoder_len`` slots, written once by
@@ -33,8 +34,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ParamDef, layer_norm
-from repro_torch.models.transformer import KERNEL_OPS, BlockOps, _layer
+from repro_torch.models.common import ParamDef, layer_norm, remat, unstack
+from repro_torch.models.transformer import (KERNEL_OPS, PLAIN_OPS, BlockOps,
+                                            _layer)
 
 
 def _attn_defs(L, d, H, dh, prefix=""):
@@ -131,11 +133,13 @@ def encode(cfg: ModelConfig, params, frames, ops: BlockOps = KERNEL_OPS):
     """frames: (B, encoder_len, d_model) stub embeddings -> encoder output."""
     x = frames.to(cfg.compute_dtype)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)
-    for i in range(cfg.n_encoder_layers):
-        p = _layer(params["enc_layers"], i)
+
+    def block(p, x):
         xn = layer_norm(x, p["ln_w"], p["ln_b"])
         a, _ = _self_mha(cfg, p, xn, causal=False, ops=ops)
-        x = _mlp(p, x + a)
+        return _mlp(p, x + a)
+    for p in unstack(params["enc_layers"], cfg.n_encoder_layers):
+        x = remat(block, p, x)
     return layer_norm(x, params["enc_norm_w"], params["enc_norm_b"])
 
 
@@ -233,14 +237,18 @@ def _unembed(params, x):
 
 
 def forward(cfg: ModelConfig, params, tokens, frames,
-            ops: BlockOps = KERNEL_OPS):
+            ops: BlockOps = PLAIN_OPS):
     """Teacher-forced decoder logits (B, S, vocab), the encoder run
-    inline; with the reference's zero aux loss."""
+    inline; with the reference's zero aux loss. The training forward:
+    each encoder and decoder block is recomputed in the backward
+    (``common.remat``)."""
     enc = encode(cfg, params, frames, ops)
     x = _dec_embed(cfg, params, tokens, 0)
-    for i in range(cfg.n_layers):
-        x = _dec_block(cfg, _layer(params["dec_layers"], i), x,
-                       {"enc": enc}, 0, "train", ops)
+
+    def block(p, x, enc):
+        return _dec_block(cfg, p, x, {"enc": enc}, 0, "train", ops)
+    for p in unstack(params["dec_layers"], cfg.n_layers):
+        x = remat(block, p, x, enc)
     return _unembed(params, x), torch.zeros((), device=x.device)
 
 

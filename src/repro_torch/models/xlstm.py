@@ -1,5 +1,5 @@
 """xLSTM: alternating mLSTM (matrix memory) and sLSTM (scalar memory)
-blocks (port of ``repro.models.xlstm``, serving only: no training).
+blocks (port of ``repro.models.xlstm``).
 
 24 layers are organized as 12 pair-blocks (mLSTM -> sLSTM) with their
 parameters stacked on a leading P dim, as in the reference. Exponential
@@ -10,7 +10,10 @@ The mLSTM recurrence runs through a ``ScanOps``: ``KERNEL_SCAN_OPS``
 its plain version on a CPU tensor; ``PLAIN_SCAN_OPS`` runs the plain
 version on any device, as the yardstick the kernel is held against. The
 sLSTM recurrence has no kernel in the reference (a jnp scan there): it is
-a PyTorch loop over time here, with float32 carries.
+a PyTorch loop over time here, with float32 carries. Training runs
+``PLAIN_SCAN_OPS`` (the kernel is forward-only); while autograd records,
+both recurrences run in chunks recomputed in the backward
+(``common.time_chunks``), the reference's ``_chunked_time_scan``.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
-from repro_torch.models.common import ParamDef, rms_norm
+from repro_torch.models.common import ParamDef, rms_norm, time_chunks
 
 
 @dataclass(frozen=True)
@@ -97,8 +100,8 @@ def mlstm_apply(cfg: ModelConfig, p, x, state, ops: ScanOps = KERNEL_SCAN_OPS):
     v = (xm @ p["m_v"]).reshape(B, S, H, dh).float()
     ig = (xm @ p["m_ig"]).float()
     fg = (xm @ p["m_fg"]).float()
-    h, (C, n, m) = ops.mlstm(q, k, v, ig, fg,
-                             (state["C"], state["n"], state["m"]))
+    h, (C, n, m) = time_chunks(ops.mlstm, (q, k, v, ig, fg),
+                               (state["C"], state["n"], state["m"]))
     h = h.reshape(B, S, dm).to(x.dtype)
     h = rms_norm(h, p["m_out_norm"]) * F.silu(z)
     return x + h @ p["m_down"], {"C": C, "n": n, "m": m}
@@ -112,15 +115,12 @@ def mlstm_state(cfg: ModelConfig, batch: int):
 
 # --- sLSTM ------------------------------------------------------------------
 
-def slstm_apply(cfg: ModelConfig, p, x, state):
-    """x (B,S,d); state {c, n, m, h} (B,d) f32. Returns (y, new_state)."""
-    B, S, _ = x.shape
-    xn = rms_norm(x, p["s_norm"])
-    pre = (xn @ p["s_w"]).float()                    # (B,S,4d)
-    r = p["s_r"].float()
-    c, n, m, h = state["c"], state["n"], state["m"], state["h"]
+def _slstm_scan(pre, r, carry):
+    """The sLSTM recurrence over pre (B,S,4d) from carry (c, n, m, h);
+    returns (h (B,S,d), carry)."""
+    c, n, m, h = carry
     hs = []
-    for t in range(S):
+    for t in range(pre.shape[1]):
         gates = pre[:, t] + h @ r
         i, f, zg, o = torch.chunk(gates, 4, dim=-1)
         logf = F.logsigmoid(f)
@@ -132,8 +132,18 @@ def slstm_apply(cfg: ModelConfig, p, x, state):
         h = torch.sigmoid(o) * c / torch.clamp_min(n, 1.0)
         m = m_new
         hs.append(h)
-    state = {"c": c, "n": n, "m": m, "h": h}
-    x = x + torch.stack(hs, dim=1).to(x.dtype)
+    return torch.stack(hs, dim=1), (c, n, m, h)
+
+
+def slstm_apply(cfg: ModelConfig, p, x, state):
+    """x (B,S,d); state {c, n, m, h} (B,d) f32. Returns (y, new_state)."""
+    xn = rms_norm(x, p["s_norm"])
+    pre = (xn @ p["s_w"]).float()                    # (B,S,4d)
+    r = p["s_r"].float()
+    hs, carry = time_chunks(lambda pre_, c: _slstm_scan(pre_, r, c), (pre,),
+                            tuple(state[k] for k in ("c", "n", "m", "h")))
+    state = dict(zip(("c", "n", "m", "h"), carry))
+    x = x + hs.to(x.dtype)
     # gated ffn (proj factor 4/3); jax.nn.gelu is the tanh approximation
     y = F.gelu((x @ p["s_up1"]).float(), approximate="tanh").to(x.dtype) \
         * (x @ p["s_up2"])

@@ -1,11 +1,13 @@
 """xLSTM full-model stack over (mLSTM, sLSTM) pair blocks (port of
-``repro.models.xlstm_stack``, serving only: no ``forward``).
+``repro.models.xlstm_stack``).
 
 The recurrent state (C, n, m / c, n, m, h) *is* the serve cache: decode
 cost is independent of context length. A Python loop over the P pair
 blocks takes the place of ``jax.lax.scan``, slicing the stacked leading-P
-parameters and state as ``transformer._layer`` does. Each step returns a
-fresh state; the one it was given is not written.
+parameters and state (``common.unstack``); while autograd records, each
+pair block is recomputed in the backward (``common.remat``), as the
+reference's training forward does. Each step returns a fresh state; the
+one it was given is not written.
 """
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import xlstm
-from repro_torch.models.common import rms_norm
-from repro_torch.models.xlstm import KERNEL_SCAN_OPS, ScanOps
+from repro_torch.models.common import remat, rms_norm, unstack
+from repro_torch.models.xlstm import KERNEL_SCAN_OPS, PLAIN_SCAN_OPS, ScanOps
 
 
 def param_table(cfg: ModelConfig) -> Dict:
@@ -37,11 +39,6 @@ def zero_state(cfg: ModelConfig, batch: int, device) -> Dict:
             for half, leaves in state_shapes(cfg, batch).items()}
 
 
-def _slice(tree: Dict, i: int) -> Dict:
-    return {k: _slice(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
-
-
 def _stack(trees) -> Dict:
     first = trees[0]
     return {k: _stack([t[k] for t in trees]) if isinstance(first[k], dict)
@@ -51,10 +48,10 @@ def _stack(trees) -> Dict:
 def _run(cfg: ModelConfig, params, tokens, state, ops: ScanOps,
          last_only: bool):
     x = params["emb"][tokens.long()].to(cfg.compute_dtype)
+    P = cfg.n_layers // 2
     new = []
-    for i in range(cfg.n_layers // 2):
-        x, st = xlstm.pair_apply(cfg, _slice(params["pairs"], i), x,
-                                 _slice(state, i), ops)
+    for p, st in zip(unstack(params["pairs"], P), unstack(state, P)):
+        x, st = remat(xlstm.pair_apply, cfg, p, x, st, ops)
         new.append(st)
     if last_only:
         # only the last position's logits are returned: the reference
@@ -63,6 +60,16 @@ def _run(cfg: ModelConfig, params, tokens, state, ops: ScanOps,
     x = rms_norm(x, params["final_norm"])
     logits = x @ params["lm_head"].to(x.dtype)
     return logits, _stack(new)
+
+
+def forward(cfg: ModelConfig, params, tokens,
+            ops: ScanOps = PLAIN_SCAN_OPS):
+    """Teacher-forced logits (B, S, vocab) from the zero state, and the
+    reference's zero aux loss: the training forward, each pair block
+    recomputed in the backward (``common.remat``)."""
+    state = zero_state(cfg, tokens.shape[0], tokens.device)
+    logits, _ = _run(cfg, params, tokens, state, ops, last_only=False)
+    return logits, torch.zeros((), device=logits.device)
 
 
 def prefill(cfg: ModelConfig, params, tokens,

@@ -17,7 +17,11 @@ two runs give the same bits, bf16 within 2e-2 of the float32 experts'
 largest value on the same routing, float32 within 2e-5 of the CPU's.
 At Whisper's shapes (K1 non-causal with Sq != Sk, K2/K3 over its cross
 and self caches) bfloat16 rows within 2**-6 of each row's largest value,
-float32 within 2e-5.
+float32 within 2e-5. Training: each wrapper refuses a CUDA input that
+requires grad before any launch; reduced qwen3 and granite-moe (float32)
+give the CPU's loss within 1e-5 relative and its grads within 1e-4 of
+each leaf's largest |g|, launching no kernel; a checkpoint saved from
+the card restores onto it with the same bits.
 This file imports no JAX, so it runs where JAX is absent.
 """
 import pytest
@@ -724,3 +728,103 @@ def test_moe_apply_on_the_card_matches_the_cpu(gen):
                              x.cpu())
     assert _err(y.cpu(), yc) <= 2e-5 * float(yc.abs().max())
     assert abs(float(aux) - float(auxc)) < 1e-5
+
+
+# --- training: no kernel, plain versions under autograd ----------------------
+
+def _refusing_calls():
+    """Each wrapper's call on small CUDA inputs, taking the tensor that
+    will require grad."""
+    r = lambda *s: torch.randn(*s, device="cuda")
+    kv = r(1, 64, 1, 64)
+    c8 = torch.zeros(1, 64, 1, 64, dtype=torch.int8, device="cuda")
+    sc, g = torch.ones(1, 64, 1, device="cuda"), r(1, 64, 2)
+    x, bc = r(1, 64, 2, 16), r(1, 64, 8)
+    return {
+        "flash_attention": (fl.flash_attention,
+                            lambda t: fl.flash_attention(t, kv, kv),
+                            r(1, 64, 2, 64)),
+        "decode_attention": (dec.decode_attention,
+                             lambda t: dec.decode_attention(t, kv, kv, 3),
+                             r(1, 1, 2, 64)),
+        "decode_attention_quant": (
+            dec.decode_attention_quant,
+            lambda t: dec.decode_attention_quant(t, c8, sc, c8, sc, 3),
+            r(1, 1, 2, 64)),
+        "mlstm_scan": (k4.mlstm_scan, lambda t: k4.mlstm_scan(t, t, t, g, g),
+                       r(1, 64, 2, 64)),
+        "ssm_scan": (k5.ssm_scan,
+                     lambda t: k5.ssm_scan(x, g.abs(), torch.zeros(
+                         2, device="cuda"), bc, bc, torch.ones(
+                         2, device="cuda"), t),
+                     torch.zeros(1, 2, 16, 8, device="cuda"))}
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "decode_attention_quant", "mlstm_scan",
+                                  "ssm_scan"])
+def test_wrappers_refuse_autograd_on_the_card(gen, name):
+    """A CUDA input that requires grad under grad mode raises before any
+    launch: the kernel's output would carry no graph."""
+    wrapper, call, t = _refusing_calls()[name]
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="requires grad"):
+        call(t.clone().requires_grad_())
+    assert wrapper.launches == before
+    with torch.no_grad():
+        call(t.clone().requires_grad_())
+    assert wrapper.launches == before + 1
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-3b-a800m"])
+def test_loss_and_grads_on_the_card_match_the_cpu(gen, arch):
+    """Reduced float32 models (random weights drawn on the CPU): the
+    card's loss within 1e-5 relative of the CPU's and every grad leaf
+    within 1e-4 of the leaf's largest |g| (the MoE backward's gathers
+    add by float atomics on the card); no kernel launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.training.trainer import trainable
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    host = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    counts = [w.launches for w in (fl.flash_attention, dec.decode_attention,
+                                   k4.mlstm_scan, k5.ssm_scan)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = trainable(tree_map(lambda t: t.to(dev), host))
+        t = toks.to(dev)
+        loss, _ = model.loss_fn(params, {"tokens": t, "labels": t})
+        grads = torch.autograd.grad(loss, list(tree_leaves(params)))
+        out[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gc, gg):
+        assert _err(a, b) <= 1e-4 * float(a.abs().max())
+    assert counts == [w.launches for w in (
+        fl.flash_attention, dec.decode_attention, k4.mlstm_scan,
+        k5.ssm_scan)]
+
+
+def test_checkpoint_round_trip_on_the_card(gen, tmp_path):
+    """bf16 parameters and float32 moments saved from the card come back
+    onto the card with the same bits."""
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    params = {"w": torch.randn(33, 7, generator=gen, device="cuda")
+              .to(torch.bfloat16),
+              "b": {"c": torch.randn(5, generator=gen, device="cuda")}}
+    state = {"params": params, "opt": adamw_init(params, AdamWConfig())}
+    state["opt"].m["w"].normal_(generator=gen)
+    path = str(tmp_path / "c.npz")
+    ckpt.save(path, state, step=4)
+    back, step = ckpt.restore(path, state)
+    assert step == 4
+    for (k, a), (_, b) in zip(ckpt.keyed_leaves(state),
+                              ckpt.keyed_leaves(back)):
+        assert b.is_cuda and a.dtype == b.dtype, k
+        assert torch.equal(a.reshape(-1).view(torch.uint8),
+                           b.reshape(-1).view(torch.uint8)), k

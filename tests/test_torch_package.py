@@ -39,6 +39,10 @@ def _scanned_files():
 def test_scan_covers_the_package():
     files = _scanned_files()
     assert len(files) > 30 and all(f.exists() for f in files)
+    rel = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    assert {"training/optimizer.py", "training/trainer.py",
+            "training/checkpoint.py", "training/data.py",
+            "launch/train.py", "examples/train_lm.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _scanned_files(),
@@ -67,7 +71,8 @@ VERBATIM = ["runtime/invocation.py", "core/flow.py", "core/index.py",
             "configs/granite_moe_3b_a800m.py", "configs/qwen3_moe_30b_a3b.py",
             "configs/llava_next_mistral_7b.py", "configs/chatglm3_6b.py",
             "configs/qwen1_5_32b.py", "configs/deepseek_coder_33b.py",
-            "configs/whisper_large_v3.py"]
+            "configs/whisper_large_v3.py", "training/data.py",
+            "training/__init__.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -136,3 +141,13 @@ def test_no_silent_cpu_fallback(monkeypatch):
     from repro_torch.bridge import params_from_jax
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_jax({"w": np.zeros(3, np.float32)})
+    from repro_torch.examples import train_lm
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, Trainer
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(build_model(cfg), AdamWConfig()).init(0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_lm.main(["--steps", "1"])
