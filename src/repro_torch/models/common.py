@@ -88,9 +88,14 @@ def unstack(tree: Dict, n: int):
 
 
 def tree_leaves(tree):
+    """The tensor leaves of a nested dict in sorted-key order; a list
+    holds its leaves in that order already (a tree's grads)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_leaves(tree[k])
+    elif isinstance(tree, list):
+        for t in tree:
+            yield from tree_leaves(t)
     else:
         yield tree
 

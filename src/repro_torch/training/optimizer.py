@@ -72,7 +72,9 @@ def global_norm(tree) -> torch.Tensor:
 def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
                  shardings=None):
     """Returns (params, new_state, metrics), ``params`` and the state's m
-    and v updated in place (see the module's docstring). ``shardings``
+    and v updated in place (see the module's docstring). ``grads`` is a
+    tree shaped as ``params`` or the list of its leaves in
+    ``tree_leaves`` order. ``shardings``
     (the reference's ZeRO-1 layouts) needs a device mesh: ROADMAP.md
     item 18."""
     if shardings is not None:

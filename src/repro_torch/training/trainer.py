@@ -30,17 +30,6 @@ def trainable(params):
     return tree_map(lambda t: t.detach().clone().requires_grad_(), params)
 
 
-def _unflatten(like, leaves):
-    """The tree of ``like``'s structure holding ``leaves``, given in
-    ``tree_leaves``' (sorted-key) order."""
-    it = iter(leaves)
-
-    def build(t):
-        return {k: build(t[k]) for k in sorted(t)} \
-            if isinstance(t, dict) else next(it)
-    return build(like)
-
-
 def make_train_step(model: Model, opt_cfg: AdamWConfig,
                     microbatch: int = 1, grad_sharding=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
@@ -93,8 +82,9 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
             loss = loss / K
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}
+        # grads: a list in tree_leaves(params) order
         params, opt_state, opt_metrics = adamw_update(
-            _unflatten(params, grads), opt_state, params, opt_cfg)
+            list(grads), opt_state, params, opt_cfg)
         return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
     return train_step
 

@@ -18,12 +18,17 @@ through ``repro_torch.bridge``. Tolerances:
   g may move the update by up to lr.
 - ``microbatch=4`` against ``microbatch=1`` (the counterpart of
   ``tests/test_substrate.py::TestMicrobatchTrainStep``): loss 2e-3,
-  parameters 5e-3.
+  the grad norm at 1e-5 relative, the accumulated grads (the first
+  step's m, unclipped) at 1e-5 of each leaf's largest |m|, parameters
+  5e-3. ``microbatch=4`` against the reference's ``microbatch=4``:
+  metrics at 1e-5 relative, m at 2e-5 of each leaf's largest |m|, the
+  parameters as below.
 - Three ``Trainer`` steps against the JAX ``Trainer`` on the same
   weights and ``batches``: losses, lr and grad norms at 1e-5 relative,
   the parameters after the third step at 1e-4 of each leaf's largest
-  |p| but for at most 1e-4 of the entries, which lie within 2 * (lr
-  summed over the steps): ``assert_close_after_adamw`` says why.
+  |p| but for at most max(1, 1e-4 n) of a leaf's n entries, which lie
+  within 2 * (lr summed over the steps): ``assert_close_after_adamw``
+  says why.
 - Checkpoints both ways: the reference's float32 and bfloat16 files
   restore in the port bit for bit; the port's file has the reference's
   keys, and its float32 leaves restore through
@@ -47,6 +52,8 @@ from repro.models import common as ref_common  # noqa: E402
 from repro.training import Trainer as RefTrainer  # noqa: E402
 from repro.training import checkpoint as ref_ckpt  # noqa: E402
 from repro.training import optimizer as ref_opt  # noqa: E402
+from repro.training.trainer import \
+    make_train_step as ref_make_train_step  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -294,11 +301,14 @@ def test_optimizer_rejects_shardings():
 # --- the train step -----------------------------------------------------------
 
 def test_microbatch_matches_full_batch():
-    """Gradient accumulation must match the single-shot step: same loss,
-    near-identical parameter update."""
+    """Gradient accumulation must match the single-shot step. Without a
+    clip, the first step's m is (1 - b1) times the grads, so m and the
+    grad norm hold the accumulated grads (the parameters after one step
+    move by about lr * sign(g) whatever the grads)."""
     cfg = get_config("qwen3-1.7b").reduced()
     model = build_model(cfg)
-    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10,
+                          grad_clip=math.inf)
     init = model.init_params(torch.Generator().manual_seed(0), "cpu")
     tokens = torch.randint(0, cfg.vocab_size, (8, 32),
                            generator=torch.Generator().manual_seed(1),
@@ -307,12 +317,18 @@ def test_microbatch_matches_full_batch():
     out = {}
     for K in (1, 4):
         params = trainable(init)
-        params, _, m = make_train_step(model, opt_cfg, microbatch=K)(
+        params, state, m = make_train_step(model, opt_cfg, microbatch=K)(
             params, opt.adamw_init(params, opt_cfg), batch)
-        out[K] = (params, m)
-    (p1, m1), (p4, m4) = out[1], out[4]
+        out[K] = (params, state, m)
+    (p1, s1, m1), (p4, s4, m4) = out[1], out[4]
     assert abs(float(m1["loss"]) - float(m4["loss"])) < 2e-3
     assert abs(float(m1["ce"]) - float(m4["ce"])) < 2e-3
+    gn1, gn4 = float(m1["grad_norm"]), float(m4["grad_norm"])
+    assert abs(gn4 - gn1) <= 1e-5 * gn1, (gn1, gn4)
+    # the accumulated grads: 1e-5 of each leaf's largest |m|
+    for i, (a, b) in enumerate(zip(tree_leaves(s1.m), tree_leaves(s4.m))):
+        err = float((a - b).abs().max())
+        assert err <= 1e-5 * float(a.abs().max()), (i, err)
     worst = max(float((a - b).detach().abs().max())
                 for a, b in zip(tree_leaves(p1), tree_leaves(p4)))
     assert worst < 5e-3, f"param divergence {worst}"
@@ -321,22 +337,60 @@ def test_microbatch_matches_full_batch():
             trainable(init), opt.adamw_init(init, opt_cfg), batch)
 
 
+def test_microbatch_step_matches_reference():
+    """One ``make_train_step(microbatch=4)`` step of the port against the
+    reference's on the same weights and batch: loss, metrics and grad
+    norm at 1e-5 relative; m, (1 - b1) times the clipped accumulated
+    grads, at the dense family's grad tolerance of each leaf's largest
+    |m|; the parameters as ``assert_close_after_adamw`` says."""
+    rcfg, pcfg = ref_config("qwen3-1.7b").reduced(), \
+        get_config("qwen3-1.7b").reduced()
+    kw = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+    host = _host(rcfg, 21)
+    tokens = np.random.default_rng(22).integers(
+        0, rcfg.vocab_size, (8, 32)).astype(np.int32)
+    rcfg_opt = ref_opt.AdamWConfig(**kw)
+    rparams = jax.tree.map(jnp.asarray, host)
+    rnew, rstate, rmet = jax.jit(ref_make_train_step(
+        ref_build(rcfg), rcfg_opt, microbatch=4))(
+        rparams, ref_opt.adamw_init(rparams, rcfg_opt),
+        {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(tokens)})
+    pcfg_opt = AdamWConfig(**kw)
+    params = trainable(params_from_jax(host, "cpu"))
+    t = torch.from_numpy(tokens)
+    pnew, pstate, pmet = make_train_step(build_model(pcfg), pcfg_opt,
+                                         microbatch=4)(
+        params, opt.adamw_init(params, pcfg_opt), {"tokens": t, "labels": t})
+    for k in ("loss", "ce", "aux", "lr", "grad_norm"):
+        want, got = float(rmet[k]), float(pmet[k])
+        assert abs(got - want) <= 1e-5 * max(abs(want), 1e-6), \
+            (k, got, want)
+    for i, (want, got) in enumerate(zip(_np_leaves(rstate.m),
+                                        tree_leaves(pstate.m))):
+        err = float(np.abs(got.numpy() - want).max())
+        assert err <= GRAD_TOL["dense"] * np.abs(want).max(), (i, err)
+    assert_close_after_adamw(
+        [(want, got.detach().numpy()) for want, got in
+         zip(_np_leaves(rnew), tree_leaves(pnew))], kw["lr"])
+
+
 def assert_close_after_adamw(pairs, lr_sum, tol=1e-4, loose=1e-4):
     """(reference, port) parameter leaves after a few AdamW steps from the
     same weights: every entry within tol of its leaf's largest |p| but
-    for at most a ``loose`` share of all entries, and those within
-    2 * lr_sum. An update is m_hat / sqrt(v_hat), scale-free in g, so a
-    grad error dg moves it by about dg / |g|: at an entry whose grad in
-    some step lies near eps or near the two sides' grad error, the update
-    may differ by its whole size (|u| <= 1 in the first steps). Such
-    entries are rare; a fault in the grads or the update moves most."""
-    n_loose = n_all = 0
-    for want, got in pairs:
+    for at most max(1, ``loose`` * n) of a leaf's n entries, and those
+    within 2 * lr_sum. An update is m_hat / sqrt(v_hat), scale-free in
+    g, so a grad error dg moves it by about dg / |g|: at an entry whose
+    grad in some step lies near eps or near the two sides' grad error,
+    the update may differ by its whole size (|u| <= 1 in the first
+    steps). Such entries are rare; a fault in one leaf's grads or update
+    moves most of that leaf. Returns the loose entries counted."""
+    n_loose = 0
+    for i, (want, got) in enumerate(pairs):
         diff = np.abs(got - want)
-        assert (diff <= 2 * lr_sum).all(), diff.max()
-        n_loose += int((diff > tol * np.abs(want).max()).sum())
-        n_all += diff.size
-    assert n_loose <= loose * n_all, (n_loose, n_all)
+        assert (diff <= 2 * lr_sum).all(), (i, diff.max())
+        n = int((diff > tol * np.abs(want).max()).sum())
+        assert n <= max(1, loose * diff.size), (i, n, diff.size)
+        n_loose += n
     return n_loose
 
 
