@@ -84,7 +84,26 @@ exits non-zero:
                card bit for bit (bf16 and float32 leaves); every kernel
                wrapper's count unchanged across the phase, and each
                wrapper refusing an input that requires grad.
-  7. the ``kernels`` line, the nvidia-smi line, and last
+  7. sim      — ``python -m repro_torch.launch.serve --mode sim`` on the
+               azure workload, in its own process and in this one: both
+               must print the object the reference's launcher prints.
+               A host path: it proves only that it runs here.
+     batchsim — the batch simulator (``repro_torch.batchsim``, torch
+               tensor code, no kernel of the port) on the card at the
+               sizes of the reference's own sweeps: (a) the differential
+               matrix of tests/test_batchsim.py against the port's scalar
+               SimExecutor, per invocation; (b) the fig8 trace (349
+               events) over the 144 lanes of ``sensitivity_grid``, every
+               lane bit for bit against the same run on the CPU and each
+               sticky lane's integer aggregates against the scalar plane;
+               (c) a zipf stream of 96 functions at 2.5 requests/s over
+               the same lanes (its 2520 s cut, and the cut printed, where
+               (b)'s rate predicts more than ``BATCH_C_BUDGET_S``): wall
+               seconds, config-events/s, host syncs per event, the idle
+               share of one profiled chunk, the serial scalar plane's
+               seconds for the same lanes, and 4 sticky lanes held to it
+               per invocation. No kernel wrapper's count moves.
+  8. the ``kernels`` line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1435,6 +1454,244 @@ def train_phase(cfg, dev, wrappers) -> None:
     release_memory()
 
 
+# --- phase 7: the simulator and the batch simulator ---------------------------
+
+# ``python -m repro.launch.serve --mode sim --workload azure`` (the JAX
+# package's launcher, its default flags) prints this object
+SIM_AZURE_REFERENCE = {"policy": "mqfq-sticky", "events": 210,
+                       "mean_latency_s": 33.084, "p99_latency_s": 120.698,
+                       "cold_pct": 12.38, "utilization": 0.904,
+                       "inter_fn_variance": 543.11}
+# tests/test_batchsim.py's trace and differential matrix (size a);
+# family 0 is MQFQ, 1 FCFS, 2 SJF (repro_torch.batchsim.state)
+BATCH_A_TRACE = dict(n_fns=8, duration=300.0, total_rps=1.0, seed=3)
+BATCH_A_CASES = [
+    ("sticky-mempress", dict(family=0, T=5.0, alpha=2.0, sticky=True,
+                             pool_size=3, capacity_bytes=2.5 * 2**30,
+                             h2d_bw=8 * 2**30, d=2)),
+    ("sfq-d1", dict(family=0, T=0.0, alpha=2.0, sticky=True, d=1)),
+    ("vt-unit", dict(family=0, T=10.0, alpha=1.0, sticky=True,
+                     vt_by_service=False, d=2)),
+    ("deficit-d3", dict(family=0, T=10.0, alpha=2.0, sticky=True,
+                        deficit_vt=True, d=3)),
+    ("fcfs", dict(family=1, d=2)),
+    ("sjf", dict(family=2, d=2)),
+    ("window10", dict(family=0, T=10.0, alpha=4.0, sticky=True,
+                      fairness_window=10.0, d=2)),
+]
+# the fig8 trace (benchmarks/fig8_sensitivity.py:60), 349 events (size b)
+BATCH_B_TRACE = dict(n_fns=19, duration=600.0, trace_id=4)
+# a stream of realistic size (size c): 96 functions over 2520 s
+# (benchmarks/scale.py:758) at 2.5 requests/s (:719), ~6300 invocations;
+# its duration is cut, and the cut printed, where (b)'s rate on the card
+# predicts more than BATCH_C_BUDGET_S
+BATCH_C_TRACE = dict(n_fns=96, duration=2520.0, total_rps=2.5, seed=0)
+BATCH_C_BUDGET_S = 80.0
+# sticky lanes of sensitivity_grid held per invocation to the scalar
+# plane at size c: (T, alpha, vt) = (0, 0, service), (5, 1, unit),
+# (10, 2, service), (50, 6, unit)
+BATCH_C_CHECKED = (0, 58, 84, 142)
+BATCH_INT_KEYS = ("cold", "warm", "host_warm", "pool_evictions",
+                  "decisions", "n_windows", "invocations")
+BATCH_FLOAT_KEYS = ("mean_latency", "p50_latency", "p99_latency", "gap_max",
+                    "gap_mean", "bound_mean", "mean_utilization", "duration")
+BATCH_TOL = 1e-9
+
+
+def device_busy_s(fn):
+    """Run ``fn()`` under torch.profiler, recording the device only; the
+    summed duration (s) of the kernels and memory operations it ran on the
+    card (one stream, so they do not overlap), or None if the trace holds
+    none. The sum reads the profiler's raw events: a chunk of the batch
+    simulator launches ~10^5 kernels, and ``profiled``'s parse of them
+    into function events is not needed for a sum."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA)
+    return ns / 1e9 if ns else None
+
+
+def sim_phase() -> None:
+    """``--mode sim`` on the azure workload, as a user runs it (its own
+    process) and in this one; both must print the reference's object."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    argv = ["--mode", "sim", "--workload", "azure"]
+    t0 = time.monotonic()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *argv],
+        capture_output=True, text=True, check=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    got = json.loads(cli.stdout)
+    with contextlib.redirect_stdout(io.StringIO()):
+        here = serve.main(argv)
+    emit(phase="sim", argv=argv, result=got, equals_in_process=got == here,
+         equals_reference=got == SIM_AZURE_REFERENCE,
+         seconds=time.monotonic() - t0)
+    if not got == here == SIM_AZURE_REFERENCE:
+        raise AssertionError(f"--mode sim: {got} / {here} != "
+                             f"{SIM_AZURE_REFERENCE}")
+
+
+def lane_mismatches(pa, out, g, ref, per_invocation=True) -> list:
+    """Where lane ``g`` of a batch run differs from the scalar plane's run
+    ``ref``: dispatch order and start types exactly, dispatch and
+    completion times to 1e-9, integer aggregates exactly, float
+    aggregates to 1e-9."""
+    bad = []
+    n = int(pa.n_events)
+    raw, s = out["raw"], out["summary"][g]
+    if per_invocation:
+        order = np.full(n, -1, dtype=np.int64)
+        for rank, inv in enumerate(ref["order"]):
+            order[inv] = rank
+        if not (raw["o_order"][g, :n] == order).all():
+            bad.append("order")
+        if not (raw["o_start"][g, :n] == ref["start"]).all():
+            bad.append("start")
+        for k in ("dispatch", "completion"):
+            if not np.abs(raw["o_" + k][g, :n] - ref[k]).max() <= BATCH_TOL:
+                bad.append(k)
+    bad += [k for k in BATCH_INT_KEYS if int(s[k]) != int(ref[k])]
+    if per_invocation:
+        bad += [k for k in BATCH_FLOAT_KEYS
+                if not abs(float(s[k]) - float(ref[k])) <= BATCH_TOL]
+    return bad
+
+
+def batchsim_phase(dev, smi) -> None:
+    """The batch simulator's lanes on the card at three sizes (see the
+    module's docstring)."""
+    from repro_torch.batchsim import build_consts, init_state, make_params
+    from repro_torch.batchsim import step as bstep
+    from repro_torch.batchsim.sweep import (_CHUNK, _trace_from, run_batch,
+                                            run_scalar_reference,
+                                            sensitivity_grid, stack_params)
+    from repro_torch.workloads.traces import padded_arrivals
+
+    # (a) the differential matrix on the card against the scalar plane
+    pa = padded_arrivals("zipf", **BATCH_A_TRACE)
+    F = len(pa.fn_ids)
+    pts = [make_params(F, **kw) for _, kw in BATCH_A_CASES]
+    t0 = time.monotonic()
+    out = run_batch(pa, pts, device=dev)
+    secs = time.monotonic() - t0
+    bad = {name: lane_mismatches(pa, out, g, run_scalar_reference(pa, pts[g]))
+           for g, (name, _) in enumerate(BATCH_A_CASES)}
+    bad = {k: v for k, v in bad.items() if v}
+    emit(phase="batchsim", size="a", trace="zipf", **BATCH_A_TRACE,
+         invocations=int(pa.n_events), lanes=len(pts), device=out["device"],
+         seconds=secs, steps=out["steps"], syncs=out["syncs"],
+         vs_scalar_plane="per invocation exact, times to 1e-9",
+         mismatches=bad)
+    if bad:
+        raise AssertionError(f"batchsim (a) differs from the scalar plane: "
+                             f"{bad}")
+
+    # (b) the fig8 trace over the 144-lane sensitivity grid: the card bit
+    # for bit against the CPU, the sticky lanes' integer aggregates
+    # against the scalar plane
+    pa = padded_arrivals("azure", **BATCH_B_TRACE)
+    F = len(pa.fn_ids)
+    grid = sensitivity_grid(F)
+    pts = [p for _, p in grid]
+    t0 = time.monotonic()
+    card = run_batch(pa, pts, device=dev)
+    card_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    cpu = run_batch(pa, pts, device="cpu")
+    cpu_s = time.monotonic() - t0
+    differ = sorted(k for k in card["raw"]
+                    if card["raw"][k].tobytes() != cpu["raw"][k].tobytes())
+    tr = _trace_from(pa)
+    bad = {}
+    for g, (label, p) in enumerate(grid):
+        if p["sticky"]:
+            m = lane_mismatches(pa, card, g,
+                                run_scalar_reference(pa, p, trace=tr),
+                                per_invocation=False)
+            if m:
+                bad[label] = m
+    emit(phase="batchsim", size="b", trace="azure", **BATCH_B_TRACE,
+         invocations=int(pa.n_events), lanes=len(pts),
+         device=card["device"], card_seconds=card_s, cpu_seconds=cpu_s,
+         steps=card["steps"], syncs=card["syncs"],
+         card_vs_cpu_fields_differing=differ,
+         sticky_lanes_vs_scalar_mismatches=bad)
+    if differ or bad:
+        raise AssertionError(f"batchsim (b): card vs cpu differ in {differ}; "
+                             f"sticky lanes vs scalar: {bad}")
+    s_per_step = card_s / card["steps"]
+    steps_per_inv = card["steps"] / int(pa.n_events)
+
+    # (c) a stream of realistic size over the same 144 lanes
+    kw = dict(BATCH_C_TRACE)
+    n_full = int(padded_arrivals("zipf", **kw).n_events)
+    predicted_s = s_per_step * steps_per_inv * n_full
+    cut = None
+    if predicted_s > BATCH_C_BUDGET_S:
+        kw["duration"] = math.floor(
+            BATCH_C_TRACE["duration"] * BATCH_C_BUDGET_S / predicted_s / 10
+        ) * 10.0
+        cut = dict(duration_from=BATCH_C_TRACE["duration"],
+                   duration_to=kw["duration"], predicted_full_s=predicted_s)
+    pa = padded_arrivals("zipf", **kw)
+    F = len(pa.fn_ids)
+    pts = [p for _, p in sensitivity_grid(F)]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = run_batch(pa, pts, device=dev)
+    wall = time.monotonic() - t0
+    events = [s["events"] for s in out["summary"]]
+    # one chunk of the same run under the profiler, from the state one
+    # chunk in: the device's busy time over the chunk's wall time
+    consts = build_consts(pa, device=dev)
+    S = max(int(p["d"]) for p in pts)
+    C = max(int(p["pool_size"]) for p in pts) + S + 1
+    st = init_state(F, pa.times.shape[0], S, C, 2 * F + 8, G=len(pts),
+                    device=dev)
+    pp = stack_params(pts, dev)
+    st = bstep.simulate_chunk(pp, consts, st, _CHUNK)
+    torch.cuda.synchronize()
+    chunk_wall = []
+
+    def chunk():
+        t0 = time.monotonic()
+        bstep.simulate_chunk(pp, consts, st, _CHUNK)
+        torch.cuda.synchronize()
+        chunk_wall.append(time.monotonic() - t0)
+    busy = device_busy_s(chunk)
+    del st, consts, pp
+    # the same lanes through the scalar SimExecutor, serially on the host
+    tr = _trace_from(pa)
+    t0 = time.monotonic()
+    refs = [run_scalar_reference(pa, p, trace=tr) for p in pts]
+    scalar_s = time.monotonic() - t0
+    bad = {g: lane_mismatches(pa, out, g, refs[g])
+           for g in BATCH_C_CHECKED}
+    bad = {g: m for g, m in bad.items() if m}
+    emit(phase="batchsim", size="c", trace="zipf", **kw, cut=cut,
+         invocations=int(pa.n_events), lanes=len(pts),
+         device=out["device"], nvidia_smi=smi, wall_s=wall,
+         steps=out["steps"], lane_events=sum(events),
+         config_events_per_s=sum(events) / wall,
+         syncs=out["syncs"], syncs_per_event=out["syncs"] / max(events),
+         profiled_chunk=dict(
+             steps=_CHUNK, wall_s=chunk_wall[0], device_busy_s=busy,
+             idle_share=None if busy is None else 1.0 - busy / chunk_wall[0]),
+         scalar_plane_serial_s=scalar_s,
+         scalar_plane_events_per_s=sum(events) / scalar_s,
+         checked_sticky_lanes=list(BATCH_C_CHECKED), mismatches=bad)
+    if bad:
+        raise AssertionError(f"batchsim (c) differs from the scalar plane: "
+                             f"{bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -1698,6 +1955,23 @@ def main() -> int:
                            "K2": dec.decode_attention,
                            "K3": dec.decode_attention_quant,
                            "K4": k4.mlstm_scan, "K5": k5.ssm_scan})
+
+    # -- the simulator and the batch simulator: host and torch tensor
+    # code, no kernel of the port --------------------------------------------
+    sim_wrappers = {"K1": fl.flash_attention, "K2": dec.decode_attention,
+                    "K3": dec.decode_attention_quant, "K4": k4.mlstm_scan,
+                    "K5": k5.ssm_scan}
+    for w in sim_wrappers.values():
+        w.launches = 0
+    t0 = time.monotonic()
+    sim_phase()
+    batchsim_phase(dev, smi)
+    sim_launches = {k: w.launches for k, w in sim_wrappers.items()}
+    emit(phase="batchsim", check="no kernel launched by the simulators",
+         launches=sim_launches, seconds=time.monotonic() - t0)
+    if any(sim_launches.values()):
+        raise AssertionError(f"kernels launched by the simulators: "
+                             f"{sim_launches}")
 
     # each path's counts, zeroed just before it and read just after; the
     # kernels line carries their sums

@@ -102,6 +102,7 @@ class EEVDF(Policy):
 
 def make_policy(name: str, **kw) -> Policy:
     from repro_torch.core.mqfq import MQFQ, SFQ, MQFQSticky
+    from repro_torch.core.reference import ReferenceMQFQ, ReferenceMQFQSticky
     table = {
         "fcfs": FCFS,
         "batch": Batch,
@@ -110,5 +111,9 @@ def make_policy(name: str, **kw) -> Policy:
         "mqfq": MQFQ,
         "mqfq-sticky": MQFQSticky,
         "sfq": SFQ,
+        # seed linear-scan implementations (differential testing / perf
+        # baselines; reported policy name matches the indexed twin)
+        "ref-mqfq": ReferenceMQFQ,
+        "ref-mqfq-sticky": ReferenceMQFQSticky,
     }
     return table[name](**kw)

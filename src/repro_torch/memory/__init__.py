@@ -1,16 +1,23 @@
 """Device layer: per-device memory manager + shared container warm pool.
 
-The port carries only the "indexed" layer (``manager.DeviceMemoryManager``
-/ ``pool.WarmPool``); the seed's linear-scan "reference" layer stays in
-``repro.memory.reference`` as the JAX package's differential baseline.
+Two interchangeable implementations of the same interface:
+
+  "indexed"   — heap-indexed hot paths, O(log N) per miss/eviction
+                (``manager.DeviceMemoryManager`` / ``pool.WarmPool``)
+  "reference" — the seed's linear scans kept verbatim as the executable
+                specification (``reference``), used by the differential
+                tests and as the perf baseline in benchmarks/scale.py
 
 Select per server with ``ServerConfig(device_layer=...)``.
 """
 from repro_torch.memory.manager import DeviceMemoryManager, GB, Region
 from repro_torch.memory.pool import Container, WarmPool
+from repro_torch.memory.reference import (ReferenceDeviceMemoryManager,
+                                    ReferenceWarmPool)
 
 DEVICE_LAYERS = {
     "indexed": (DeviceMemoryManager, WarmPool),
+    "reference": (ReferenceDeviceMemoryManager, ReferenceWarmPool),
 }
 
 

@@ -173,7 +173,6 @@ def specs_from_endpoints(endpoints, *, demand: float = 0.5
 # each with the ROADMAP.md item (section 1, "Modules to port") that
 # ports it. make_server refuses a config that would reach one.
 _NOT_PORTED = {
-    "executor='sim'": "the simulator (SimExecutor), item 14",
     "sharding": "the sharded control plane (server/shard.py), item 15",
     "datapath='pipeline'": "the cold-start data plane (repro.datapath), "
                            "item 16",
@@ -190,36 +189,36 @@ def make_server(config: ServerConfig, *,
                 fns: Optional[Dict[str, FunctionSpec]] = None,
                 endpoints: Optional[dict] = None,
                 policy: Optional[Policy] = None):
-    """Build a wall-clock Server from a frozen config.
+    """Build a Server from a frozen config.
 
+    - ``executor="sim"``: requires ``fns``; drive it with
+      ``server.run_trace(trace)``.
     - ``executor="wallclock"``: requires ``endpoints`` (``fns`` derived
       from their weight bytes unless given); drive it with
       ``start() / submit() / drain() / stop()``.
     - ``policy``: optional pre-built Policy instance (tests/ablations);
       otherwise built from ``config.policy`` + ``config.policy_kwargs``.
 
-    The simulator, sharding, the pipeline data plane and scenarios are
-    not ported yet; a config that asks for one raises ``ValueError``
-    naming its ROADMAP item.
+    The checks run in the reference's order. Sharding, the pipeline data
+    plane and scenarios are not ported yet; a config that asks for one
+    raises ``ValueError`` naming its ROADMAP item.
     """
     from repro_torch.core.policies import make_policy
     from repro_torch.server.control import ControlPlane
     from repro_torch.server.events import EventBus
-    from repro_torch.server.executors import Server, WallClockExecutor
+    from repro_torch.server.executors import (Server, SimExecutor,
+                                              WallClockExecutor)
 
-    if config.executor == "sim":
-        raise _not_ported("executor='sim'")
-    if config.executor != "wallclock":
-        raise ValueError(f"unknown executor {config.executor!r}")
-    if config.sharding != "none" or config.n_shards != 1:
+    if config.sharding not in ("none", "hash", "sticky"):
+        raise ValueError(f"unknown sharding {config.sharding!r}; "
+                         f"expected 'none', 'hash' or 'sticky'")
+    if config.sharding != "none":
         raise _not_ported("sharding")
-    if config.datapath == "pipeline":
-        raise _not_ported("datapath='pipeline'")
-    if config.datapath != "scalar":
+    if config.datapath not in ("scalar", "pipeline"):
         raise ValueError(f"unknown datapath {config.datapath!r}; "
                          f"expected 'scalar' or 'pipeline'")
-    if config.scenario:
-        raise _not_ported("scenario")
+    if config.datapath == "pipeline":
+        raise _not_ported("datapath='pipeline'")
     if config.prefetch:
         raise ValueError(
             "prefetch=True requires datapath='pipeline': the scalar "
@@ -268,22 +267,40 @@ def make_server(config: ServerConfig, *,
             raise ValueError(
                 "transfer faults require datapath='pipeline': the "
                 "scalar plane has no in-flight transfers to abort")
+    if config.n_shards != 1:
+        raise ValueError("n_shards > 1 requires sharding='hash' or "
+                         "'sticky' (sharding='none' is the monolithic "
+                         "reference plane)")
 
     if policy is None:
         policy = make_policy(config.policy, **dict(config.policy_kwargs))
     bus = EventBus()
-    if endpoints is None:
-        raise ValueError("wallclock executor requires endpoints=")
-    if fns is None:
-        fns = specs_from_endpoints(endpoints)
-    control = ControlPlane(policy, fns, config, bus)
-    injector = getattr(control, "injector", None)
-    if injector is not None and injector.plan.endpoint_faults:
-        # count-triggered endpoint faults inject from inside the
-        # endpoint call, sharing the control plane's injector so the
-        # per-fn attempt counters match the sim's realize-time path
-        from repro_torch.faults import FaultyEndpoint
-        endpoints = {fn: FaultyEndpoint(ep, injector)
-                     for fn, ep in endpoints.items()}
-    executor = WallClockExecutor(control, endpoints, config)
+    if config.executor == "sim":
+        if config.scenario:
+            raise _not_ported("scenario")
+        if fns is None:
+            raise ValueError("sim executor requires fns= (scenarios, "
+                             "the reference's other source of fns, wait "
+                             "for item 17 in ROADMAP.md)")
+        control = ControlPlane(policy, fns, config, bus)
+        executor = SimExecutor(control, config)
+    elif config.executor == "wallclock":
+        if config.scenario:
+            raise _not_ported("scenario")
+        if endpoints is None:
+            raise ValueError("wallclock executor requires endpoints=")
+        if fns is None:
+            fns = specs_from_endpoints(endpoints)
+        control = ControlPlane(policy, fns, config, bus)
+        injector = getattr(control, "injector", None)
+        if injector is not None and injector.plan.endpoint_faults:
+            # count-triggered endpoint faults inject from inside the
+            # endpoint call, sharing the control plane's injector so the
+            # per-fn attempt counters match the sim's realize-time path
+            from repro_torch.faults import FaultyEndpoint
+            endpoints = {fn: FaultyEndpoint(ep, injector)
+                         for fn, ep in endpoints.items()}
+        executor = WallClockExecutor(control, endpoints, config)
+    else:
+        raise ValueError(f"unknown executor {config.executor!r}")
     return Server(config, control, executor, bus)

@@ -109,7 +109,8 @@ def test_control_plane_decisions_match_reference(policy, T, n_devices, d,
 
 def test_make_server_refuses_unported_paths():
     from repro_torch.server import ServerConfig, make_server
-    for cfg, word in [(ServerConfig(), "SimExecutor"),
+    for cfg, word in [(ServerConfig(executor="sim", datapath="pipeline"),
+                       "item 16"),
                       (ServerConfig(executor="wallclock", sharding="hash",
                                     n_shards=2, n_devices=2), "sharded"),
                       (ServerConfig(executor="wallclock",
@@ -119,8 +120,8 @@ def test_make_server_refuses_unported_paths():
         with pytest.raises(ValueError, match=word):
             make_server(cfg, endpoints={})
     from repro_torch.core.policies import make_policy
-    with pytest.raises(KeyError):
-        make_policy("ref-mqfq-sticky")
+    from repro_torch.core.reference import ReferenceMQFQSticky
+    assert isinstance(make_policy("ref-mqfq-sticky"), ReferenceMQFQSticky)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "xlstm-350m",

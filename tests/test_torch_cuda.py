@@ -21,7 +21,8 @@ float32 within 2e-5. Training: each wrapper refuses a CUDA input that
 requires grad before any launch; reduced qwen3 and granite-moe (float32)
 give the CPU's loss within 1e-5 relative and its grads within 1e-4 of
 each leaf's largest |g|, launching no kernel; a checkpoint saved from
-the card restores onto it with the same bits.
+the card restores onto it with the same bits. The batch simulator's
+lanes on the card give the CPU's run bit for bit.
 This file imports no JAX, so it runs where JAX is absent.
 """
 import pytest
@@ -828,3 +829,25 @@ def test_checkpoint_round_trip_on_the_card(gen, tmp_path):
         assert b.is_cuda and a.dtype == b.dtype, k
         assert torch.equal(a.reshape(-1).view(torch.uint8),
                            b.reshape(-1).view(torch.uint8)), k
+
+
+def test_batchsim_lanes_on_the_card_match_the_cpu(gen):
+    """The batch simulator's lanes (sticky, plain MQFQ's splitmix draws,
+    FCFS, SJF, under memory pressure) on the card give the CPU's run bit
+    for bit."""
+    from repro_torch.batchsim import FAM_FCFS, FAM_MQFQ, FAM_SJF, make_params
+    from repro_torch.batchsim.sweep import run_batch
+    from repro_torch.workloads.traces import padded_arrivals
+    pa = padded_arrivals("zipf", n_fns=8, duration=120.0, total_rps=1.0,
+                         seed=3)
+    F = len(pa.fn_ids)
+    pts = [make_params(F, family=fam, sticky=sticky, d=d, pool_size=3,
+                       capacity_bytes=2.5 * 2**30, h2d_bw=8 * 2**30, seed=5)
+           for fam, sticky, d in ((FAM_MQFQ, True, 2), (FAM_MQFQ, False, 3),
+                                  (FAM_FCFS, True, 2), (FAM_SJF, True, 1))]
+    card = run_batch(pa, pts, device="cuda")
+    cpu = run_batch(pa, pts, device="cpu")
+    assert card["device"].startswith("cuda")
+    for k in cpu["raw"]:
+        assert card["raw"][k].tobytes() == cpu["raw"][k].tobytes(), k
+    assert card["summary"] == cpu["summary"]

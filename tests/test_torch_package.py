@@ -42,7 +42,10 @@ def test_scan_covers_the_package():
     rel = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     assert {"training/optimizer.py", "training/trainer.py",
             "training/checkpoint.py", "training/data.py",
-            "launch/train.py", "examples/train_lm.py"} <= rel
+            "launch/train.py", "examples/train_lm.py",
+            "batchsim/state.py", "batchsim/step.py", "batchsim/sweep.py",
+            "server/executors.py", "runtime/simulate.py",
+            "runtime/engine.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _scanned_files(),
@@ -72,7 +75,9 @@ VERBATIM = ["runtime/invocation.py", "core/flow.py", "core/index.py",
             "configs/llava_next_mistral_7b.py", "configs/chatglm3_6b.py",
             "configs/qwen1_5_32b.py", "configs/deepseek_coder_33b.py",
             "configs/whisper_large_v3.py", "training/data.py",
-            "training/__init__.py"]
+            "training/__init__.py", "core/reference.py",
+            "memory/reference.py", "memory/__init__.py", "core/policies.py",
+            "workloads/traces.py", "runtime/simulate.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -82,7 +87,8 @@ def test_control_plane_copy_is_verbatim(rel):
 
 def test_cut_modules_keep_their_carried_parts_verbatim():
     """Where the copy cuts code, what it carries stays the reference's:
-    the wall-clock executor, the server config, the policy classes."""
+    the sim and wall-clock executors, ``Server.run_trace``, the server
+    config, the policy classes (compared after the import rename)."""
     from repro.core import policies as ref_pol
     from repro.server import config as ref_cfg
     from repro.server import executors as ref_ex
@@ -90,12 +96,16 @@ def test_cut_modules_keep_their_carried_parts_verbatim():
     from repro_torch.server import config as port_cfg
     from repro_torch.server import executors as port_ex
     pairs = [(ref_ex.WallClockExecutor, port_ex.WallClockExecutor),
+             (ref_ex.SimExecutor, port_ex.SimExecutor),
+             (ref_ex.Server.run_trace, port_ex.Server.run_trace),
+             (ref_ex.Server.run_scenario, port_ex.Server.run_scenario),
              (ref_cfg.ServerConfig, port_cfg.ServerConfig),
              (ref_cfg.specs_from_endpoints, port_cfg.specs_from_endpoints)]
     pairs += [(getattr(ref_pol, n), getattr(port_pol, n))
               for n in ("FCFS", "Batch", "SJF", "EEVDF")]
     for ref, port in pairs:
-        assert inspect.getsource(port) == inspect.getsource(ref), ref
+        assert inspect.getsource(port) == \
+            _renamed(inspect.getsource(ref)), ref
     # spec.py drops only the data plane's import, used by one annotation
     spec_ref = (REF / "workloads/spec.py").read_text()
     spec_port = (PORT / "workloads/spec.py").read_text()
@@ -151,3 +161,14 @@ def test_no_silent_cpu_fallback(monkeypatch):
         train.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_lm.main(["--steps", "1"])
+    from repro_torch.batchsim import (build_consts, init_state, make_params,
+                                      run_batch)
+    from repro_torch.batchsim.sweep import stack_params
+    from repro_torch.workloads.traces import padded_arrivals
+    pa = padded_arrivals("zipf", n_fns=2, duration=10.0, total_rps=1.0)
+    for call in (lambda: run_batch(pa, [make_params(2)]),
+                 lambda: init_state(2, 4, 2, 35, 12),
+                 lambda: build_consts(pa),
+                 lambda: stack_params([make_params(2)])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
