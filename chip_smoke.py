@@ -65,7 +65,25 @@ exits non-zero:
                encoder and the decoder blocks as ranges; each model's
                endpoints are freed, host memory included, before the
                next's are built.
-  6. train   — the training path (``repro_torch.training``), which runs
+  6. replay  — ``Server.replay_open_loop`` of an Azure-shaped stream (the
+               Azure loader's seeded synthetic fallback: 6 functions, 2
+               tenants, 34 arrivals in 10 minutes) through six full-width
+               endpoints (qwen3-1.7b twice, one of them kv_quant;
+               hymba-1.5b twice; xlstm-350m twice, at its depth cut)
+               behind the wall-clock MQFQ-Sticky server with a capacity
+               of two qwen endpoints' weights, open-loop at 0.7 times the
+               warm request rate the qwen serve path measured (at most
+               60 s of wall time); then its first 5 minutes hash-sharded
+               over two logical devices on the card. Each run: every
+               arrival released and completed without failure, cold and
+               warm starts, K1-K5 each launched exactly as often as the
+               completed requests and warm-ups imply; latency by start
+               type, lateness, per-tenant p99, uploads, evictions, the
+               per-shard split. Each endpoint's upload() and compile()
+               seconds and upload rate, and per arch the cost model's
+               warm_time and cold_init at the served shape beside the
+               measured execute() and upload + compile seconds.
+  7. train   — the training path (``repro_torch.training``), which runs
                the plain versions under autograd and no kernel:
                full-width qwen3-1.7b in bf16 at train_4k's sequence
                length (S 4096; B 4 in 2 microbatches, cut from 256), 4
@@ -84,10 +102,15 @@ exits non-zero:
                card bit for bit (bf16 and float32 leaves); every kernel
                wrapper's count unchanged across the phase, and each
                wrapper refusing an input that requires grad.
-  7. sim      — ``python -m repro_torch.launch.serve --mode sim`` on the
+  8. sim      — ``python -m repro_torch.launch.serve --mode sim`` on the
                azure workload, in its own process and in this one: both
-               must print the object the reference's launcher prints.
-               A host path: it proves only that it runs here.
+               must print the object the reference's launcher prints;
+               ``--workload endpoints`` on the cost model's H100
+               constants; ``run_scenario()`` of cold-start-storm through
+               the pipeline data plane, without and with prefetch, its
+               link at the upload rate phase "replay" measured (cold
+               p99 of each). Host paths: they prove only that they run
+               here.
      batchsim — the batch simulator (``repro_torch.batchsim``, torch
                tensor code, no kernel of the port) on the card at the
                sizes of the reference's own sweeps: (a) the differential
@@ -103,11 +126,12 @@ exits non-zero:
                share of one profiled chunk, the serial scalar plane's
                seconds for the same lanes, and 4 sticky lanes held to it
                per invocation. No kernel wrapper's count moves.
-  8. the ``kernels`` line, the nvidia-smi line, and last
+  9. the ``kernels`` line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -1101,7 +1125,249 @@ def serve_summary(res, eps, seconds, n_req):
                 p50_latency_s=lats[len(lats) // 2], max_latency_s=lats[-1])
 
 
-# --- phase 6: training --------------------------------------------------------
+# --- phase 6: open-loop replay ------------------------------------------------
+
+# The replay's scenario: the Azure loader's seeded synthetic fallback
+# (no trace CSV is in the repository), 10 minutes of trace at a mean of 3
+# invocations a minute. Of its 7 rows 6 carry invocations (the loader
+# drops the row with none): 34 arrivals over 2 tenants, one function
+# per endpoint below. The sharded run replays its first 5 minutes.
+REPLAY_SCENARIO = dict(n_fns=7, minutes=10, seed=24, mean_rpm=3.0)
+REPLAY_SHARDED_MINUTES = 5
+# the offered rate, as a share of the warm request rate that the qwen
+# serve phase measured (requests / seconds), and the cap on its wall time
+REPLAY_LOAD, REPLAY_MAX_WALL_S = 0.7, 60.0
+# the endpoints, in the order of the scenario's sorted function ids:
+# (model, kv_quant); xlstm at the model phase's depth cut
+REPLAY_ENDPOINTS = [("qwen3-1.7b", False), ("qwen3-1.7b", True),
+                    ("hymba-1.5b", False), ("hymba-1.5b", False),
+                    ("xlstm-350m", False), ("xlstm-350m", False)]
+
+
+def time_endpoint(ep, log) -> None:
+    """Record each ``upload()`` and ``compile()`` of ``ep`` in ``log`` as
+    (kind, seconds); a compile's seconds leave out the upload it makes
+    itself (``TorchEndpoint.compile`` uploads if the weights are not on
+    the card)."""
+    upload, compile_ = ep.upload, ep.compile
+
+    def timed_upload():
+        s = upload()
+        log.append(("upload", s))
+        return s
+
+    def timed_compile():
+        n = len(log)
+        s = compile_()
+        log.append(("compile", s - sum(x for k, x in log[n:]
+                                       if k == "upload")))
+        return s
+
+    ep.upload, ep.compile = timed_upload, timed_compile
+
+
+def replay_expected_launches(eps, cfgs, served, compiles) -> dict:
+    """Kernel launches that ``served`` requests and ``compiles`` warm-ups
+    per endpoint imply, reckoned per arch as the serve phase does: per
+    layer one K1 call a prefill and one K2 (K3 on a kv_quant endpoint)
+    a decode step; hymba also one K5 call a prefill and one a step; xlstm
+    one K4 call per pair block a prefill and a step; a warm-up is a
+    prefill and one step."""
+    out = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5")}
+    for f in eps:
+        cfg, r, c = cfgs[f], served.get(f, 0), compiles.get(f, 0)
+        steps = DECODE_STEPS * r + c
+        if cfg.family == "ssm":
+            out["K4"] += cfg.n_layers // 2 * (r + c + steps)
+            continue
+        L = cfg.n_layers
+        out["K1"] += L * (r + c)
+        out["K3" if cfg.kv_quant else "K2"] += L * steps
+        if cfg.family == "hybrid":
+            out["K5"] += L * (r + c + steps)
+    return out
+
+
+def replay_run(eps, cfgs, logs, sc, minutes, speedup, wrappers, **cfg_kw):
+    """Replay ``sc`` open-loop through a wall-clock MQFQ-Sticky server
+    over ``eps``, each kernel's count zeroed just before and read just
+    after; checks every arrival released and completed without failure,
+    cold and warm starts, and the launches the completed requests and
+    warm-ups imply. Returns (summary, launches, the RunResult)."""
+    from repro_torch.server import (ServerConfig, make_server, nearest_rank,
+                                    specs_from_endpoints)
+    cap = 2 * max(ep.weight_bytes for ep in eps.values())
+    server = make_server(ServerConfig(executor="wallclock",
+                                      policy="mqfq-sticky", d=2,
+                                      capacity_bytes=cap, **cfg_kw),
+                         fns=specs_from_endpoints(eps), endpoints=eps)
+    evicted = []
+    for d in server.control.devices:
+        d.mem.evict_listeners.append(evicted.append)
+    n_events = sum(1 for _ in sc.stream())
+    marks = {f: len(logs[f]) for f in eps}
+    for w in wrappers.values():
+        w.launches = 0
+    rr = server.replay_open_loop(sc, speedup=speedup)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    res = rr.result
+    new = {f: logs[f][marks[f]:] for f in eps}
+    compiles = {f: sum(k == "compile" for k, _ in new[f]) for f in eps}
+    served = {f: sum(i.fn_id == f for i in res.invocations) for f in eps}
+    expected = replay_expected_launches(eps, cfgs, served, compiles)
+    by_start = {}
+    for inv in sorted(res.invocations, key=lambda i: i.latency):
+        by_start.setdefault(inv.start_type, []).append(inv.latency)
+    lat = {k: dict(n=len(v), p50_s=nearest_rank(v, 0.5),
+                   p99_s=nearest_rank(v, 0.99), max_s=v[-1])
+           for k, v in sorted(by_start.items())}
+    summary = dict(
+        events=n_events, released=rr.released, completed=res.completed_count,
+        failed=res.failed_count, n_feeders=rr.n_feeders, speedup=speedup,
+        offered_rps=n_events / (60.0 * minutes) * speedup,
+        wall_s=rr.wall_s, start_types=res.start_type_counts(),
+        latency_by_start=lat, lateness_p99_s=rr.lateness_quantile(0.99),
+        lateness_max_s=rr.max_lateness,
+        per_tenant_p99_s={t: r["p99"] for t, r in
+                          rr.per_tenant_quantiles(sc).items()},
+        served=served, compiles=compiles,
+        uploads={f: sum(k == "upload" for k, _ in new[f]) for f in eps},
+        evictions=len(evicted), launches=launches,
+        expected_launches=expected)
+    if cfg_kw.get("sharding") == "hash":
+        from repro_torch.server import hash_shard
+        n = cfg_kw["n_shards"]
+        split = [collections.Counter(e.fn_id for e in s)
+                 for s in sc.shard_streams(n, mode="filter")]
+        got = [collections.Counter(i.fn_id for i in ex.completed)
+               for ex in server.executor.execs]
+        summary["per_shard_completed"] = [sum(c.values()) for c in got]
+        if got != split or rr.n_feeders != n or any(
+                hash_shard(f, n) != k for k, c in enumerate(got)
+                for f in c):
+            raise AssertionError(f"replay: shard split {got}, the "
+                                 f"scenario's fan-out {split}")
+    if not rr.released == n_events == res.completed_count == \
+            len(res.invocations):
+        raise AssertionError(f"replay: {n_events} events, released "
+                             f"{rr.released}, completed "
+                             f"{res.completed_count}")
+    if any(inv.failed or not inv.done for inv in res.invocations):
+        raise AssertionError("replay: an invocation failed")
+    starts = res.start_type_counts()
+    if starts.get("cold", 0) < 1 or starts.get("warm", 0) < 1:
+        raise AssertionError(f"replay: no cold or no warm start: {starts}")
+    if launches != expected or not all(launches.values()):
+        raise AssertionError(f"replay launches {launches}, expected "
+                             f"{expected}")
+    return summary, launches, res
+
+
+def replay_phase(TorchEndpoint, get_config, xcfg, dev, wrappers,
+                 qwen_rate):
+    """Six full-width endpoints (qwen3-1.7b twice, one kv_quant; hymba-1.5b
+    twice; xlstm-350m twice) behind the wall-clock MQFQ-Sticky server
+    replay the Azure-shaped scenario open-loop at ``REPLAY_LOAD`` times
+    the qwen serve phase's warm request rate (``qwen_rate``), then half
+    of it hash-sharded over two logical devices on the card; each
+    endpoint's upload and compile seconds beside the cost model's terms.
+    Frees the endpoints; returns (launches of each run, the measured
+    upload rate in bytes/s)."""
+    from repro_torch.shapes import InputShape
+    from repro_torch.datapath.stages import ColdStartStages
+    from repro_torch.workloads import costmodel as cm
+    from repro_torch.workloads.scenarios import make_scenario
+    t_phase = time.monotonic()
+    sc = make_scenario("azure-replay", **REPLAY_SCENARIO)
+    fns = sorted(sc.fns)
+    models = {"qwen3-1.7b": get_config("qwen3-1.7b"),
+              "hymba-1.5b": get_config("hymba-1.5b"), "xlstm-350m": xcfg}
+    cfgs = {f: dataclasses.replace(models[m], kv_quant=q)
+            for f, (m, q) in zip(fns, REPLAY_ENDPOINTS)}
+    arch = {f: m + ("+kv_quant" if q else "")
+            for f, (m, q) in zip(fns, REPLAY_ENDPOINTS)}
+    t0 = time.monotonic()
+    eps = {f: TorchEndpoint(f, cfgs[f], seed=i, serve_seq=SERVE_SEQ,
+                            serve_batch=SERVE_BATCH,
+                            decode_steps=DECODE_STEPS, device=dev)
+           for i, f in enumerate(fns)}
+    logs = {f: [] for f in fns}
+    for f, ep in eps.items():
+        time_endpoint(ep, logs[f])
+    n_events = sum(1 for _ in sc.stream())
+    span = 60.0 * REPLAY_SCENARIO["minutes"]
+    # the offered rate n_events / span * speedup = REPLAY_LOAD * qwen_rate,
+    # unless that would take longer than REPLAY_MAX_WALL_S
+    speedup = max(REPLAY_LOAD * qwen_rate * span / n_events,
+                  span / REPLAY_MAX_WALL_S)
+    emit(phase="replay", step="endpoints", scenario=sc.description,
+         endpoints=arch, weight_bytes={f: ep.weight_bytes
+                                       for f, ep in eps.items()},
+         pinned_weight_bytes=sum(ep.weight_bytes for ep in eps.values()),
+         host_allocator_pinned_bytes=pinned_host_bytes(),
+         qwen_warm_rps=qwen_rate, load=REPLAY_LOAD, speedup=speedup,
+         seconds=time.monotonic() - t0)
+    mono, mono_launches, res = replay_run(
+        eps, cfgs, logs, sc, REPLAY_SCENARIO["minutes"], speedup, wrappers)
+    emit(phase="replay", run="monolithic", **mono)
+
+    # cold-start terms of each endpoint, and the cost model beside them
+    uploads = {f: [s for k, s in logs[f] if k == "upload"] for f in fns}
+    compiles = {f: [s for k, s in logs[f] if k == "compile"] for f in fns}
+    rates = [eps[f].weight_bytes / s for f in fns for s in uploads[f]]
+    upload_bw = float(np.median(rates))
+    emit(phase="replay", step="cold_start",
+         upload_s=uploads, compile_s=compiles,
+         upload_gb_per_s={f: [eps[f].weight_bytes / s / 1e9
+                              for s in uploads[f]] for f in fns},
+         median_upload_gb_per_s=upload_bw / 1e9,
+         cost_model_compile_s=cm.COMPILE_TIME, cost_model_h2d_bw=cm.H2D_BW)
+    pre = InputShape("serve_prefill", SERVE_SEQ, SERVE_BATCH, "prefill")
+    dec = InputShape("serve_decode", SERVE_SEQ, SERVE_BATCH, "decode")
+    for m in dict.fromkeys(arch.values()):
+        mine = [f for f in fns if arch[f] == m]
+        cfg = cfgs[mine[0]]
+        # endpoint_spec's terms at the served shape: the roofline service
+        # time of the prefill and of DECODE_STEPS steps, and the cold
+        # start of its uncontended stages (compile + weight upload)
+        warm_pred = (cm.service_time(cfg, pre)
+                     + DECODE_STEPS * cm.service_time(cfg, dec))
+        wbytes = cfg.n_params() * (2 if "16" in cfg.param_dtype else 4)
+        cold_pred = ColdStartStages(
+            setup_s=0.0, compile_s=cm.COMPILE_TIME,
+            weight_bytes=int(wbytes)).scalar_cold_init(cm.H2D_BW)
+        # execute()'s seconds, which leave out upload and compile; every
+        # endpoint served, uploaded and compiled in the run
+        exec_s = float(np.median([i.service_time for i in res.invocations
+                                  if i.fn_id in mine]))
+        cold_s = (float(np.mean([s for f in mine for s in uploads[f]]))
+                  + float(np.mean([s for f in mine for s in compiles[f]])))
+        emit(phase="replay", step="cost_model", model=m,
+             warm_time_s=warm_pred, cold_init_s=cold_pred,
+             measured_exec_s=exec_s,
+             measured_upload_plus_compile_s=cold_s,
+             exec_over_warm_time=exec_s / warm_pred,
+             upload_plus_compile_over_cold_init=cold_s / cold_pred)
+
+    # half the scenario, hash-sharded over two logical devices on the
+    # card, each with the monolithic run's capacity; from cold weights
+    for ep in eps.values():
+        ep.evict()
+    half = make_scenario("azure-replay", **{
+        **REPLAY_SCENARIO, "minutes": REPLAY_SHARDED_MINUTES})
+    if set(half.fns) != set(fns):
+        raise AssertionError("replay: the sharded half lacks a function")
+    sharded, sh_launches, _ = replay_run(
+        eps, cfgs, logs, half, REPLAY_SHARDED_MINUTES, speedup, wrappers,
+        sharding="hash", n_shards=2, n_devices=2)
+    emit(phase="replay", run="sharded", **sharded)
+    emit(phase="replay", step="done", seconds=time.monotonic() - t_phase)
+    del eps, res
+    release_memory()
+    return mono_launches, sh_launches, upload_bw
+
+
+# --- phase 7: training --------------------------------------------------------
 
 def train_steps(tr, data, steps):
     """``steps`` single-step ``Trainer.fit`` calls, each timed to a
@@ -1454,7 +1720,7 @@ def train_phase(cfg, dev, wrappers) -> None:
     release_memory()
 
 
-# --- phase 7: the simulator and the batch simulator ---------------------------
+# --- phase 8: the simulator and the batch simulator ---------------------------
 
 # ``python -m repro.launch.serve --mode sim --workload azure`` (the JAX
 # package's launcher, its default flags) prints this object
@@ -1515,9 +1781,11 @@ def device_busy_s(fn):
     return ns / 1e9 if ns else None
 
 
-def sim_phase() -> None:
+def sim_phase(upload_bw) -> None:
     """``--mode sim`` on the azure workload, as a user runs it (its own
-    process) and in this one; both must print the reference's object."""
+    process) and in this one; both must print the reference's object.
+    Then ``--workload endpoints`` on the cost model's H100 constants, and
+    the pipeline data plane (``storm_phase``)."""
     import contextlib
     import io
     from repro_torch.launch import serve
@@ -1536,6 +1804,56 @@ def sim_phase() -> None:
     if not got == here == SIM_AZURE_REFERENCE:
         raise AssertionError(f"--mode sim: {got} / {here} != "
                              f"{SIM_AZURE_REFERENCE}")
+
+    # the assigned archs priced by the cost model on the H100's constants
+    argv = ["--mode", "sim", "--workload", "endpoints"]
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = serve.main(argv)
+    emit(phase="sim", argv=argv, result=out, seconds=time.monotonic() - t0)
+    if out["events"] < 1 or not all(math.isfinite(v) for k, v in
+                                    out.items() if k != "policy"):
+        raise AssertionError(f"--workload endpoints: {out}")
+    storm_phase(upload_bw)
+
+
+# cold-start-storm (spec_profile "llm": 4-14 GB of weights behind short
+# fixed stages) on one device through the pipeline data plane, its link at
+# the upload rate phase "replay" measured on the card
+STORM_SCENARIO = dict(n_fns=24, duration=720.0, spec_profile="llm")
+
+
+def storm_phase(upload_bw) -> None:
+    """``run_scenario()`` of cold-start-storm with ``datapath="pipeline"``,
+    without and with anticipatory prefetch: every arrival completes; cold
+    p99 of each run."""
+    from repro_torch.server import ServerConfig, make_server, nearest_rank
+    from repro_torch.workloads.scenarios import make_scenario
+    kw = {**STORM_SCENARIO, "llm_h2d_bw": upload_bw}
+    n_events = sum(1 for _ in make_scenario("cold-start-storm",
+                                            **kw).stream())
+    for prefetch in (False, True):
+        t0 = time.monotonic()
+        srv = make_server(ServerConfig(
+            policy="mqfq-sticky", d=1, n_devices=1, h2d_bw=upload_bw,
+            datapath="pipeline", prefetch=prefetch,
+            scenario="cold-start-storm", scenario_kwargs=kw))
+        res = srv.run_scenario()
+        cold = sorted(i.latency for i in res.invocations
+                      if i.start_type == "cold")
+        dp = srv.control.devices[0].datapath
+        emit(phase="sim", scenario="cold-start-storm", datapath="pipeline",
+             prefetch=prefetch, h2d_bw=upload_bw, events=n_events,
+             completed=res.completed_count,
+             start_types=res.start_type_counts(),
+             cold_p99_s=nearest_rank(cold, 0.99) if cold else None,
+             p99_s=res.p99_latency(),
+             prefetches_started=dp.prefetches_started,
+             seconds=time.monotonic() - t0)
+        if res.completed_count != n_events or dp.transfers:
+            raise AssertionError(f"cold-start-storm (prefetch={prefetch}): "
+                                 f"{res.completed_count} of {n_events} "
+                                 f"completed")
 
 
 def lane_mismatches(pa, out, g, ref, per_invocation=True) -> list:
@@ -1838,6 +2156,8 @@ def main() -> int:
     expected = {"K1": L * (n_req + n_q8 + len(eps) + len(qep)),
                 "K2": L * (DECODE_STEPS * n_req + len(eps)),
                 "K3": L * (DECODE_STEPS * n_q8 + len(qep))}
+    # warm requests a second, the replay phase's unit of load
+    qwen_rate = n_req / t_main
     emit(phase="serve", model="qwen3-1.7b",
          **serve_summary(res, eps, t_main, n_req),
          kv_quant_completed=n_q8,
@@ -1950,6 +2270,12 @@ def main() -> int:
         serve_seq=WHISPER_SEQ,
         k1_per_prefill=wcfg.n_encoder_layers + 2 * wcfg.n_layers,
         k2_per_step=2 * wcfg.n_layers)
+    # -- open-loop replay of an Azure-shaped stream: all five kernels ------
+    replay_launches, replay_sh_launches, upload_bw = replay_phase(
+        TorchEndpoint, get_config, xcfg, dev,
+        {"K1": fl.flash_attention, "K2": dec.decode_attention,
+         "K3": dec.decode_attention_quant, "K4": k4.mlstm_scan,
+         "K5": k5.ssm_scan}, qwen_rate)
     # -- the training path: plain versions under autograd, no kernel ---------
     train_phase(cfg, dev, {"K1": fl.flash_attention,
                            "K2": dec.decode_attention,
@@ -1964,7 +2290,7 @@ def main() -> int:
     for w in sim_wrappers.values():
         w.launches = 0
     t0 = time.monotonic()
-    sim_phase()
+    sim_phase(upload_bw)
     batchsim_phase(dev, smi)
     sim_launches = {k: w.launches for k, w in sim_wrappers.items()}
     emit(phase="batchsim", check="no kernel launched by the simulators",
@@ -1980,7 +2306,9 @@ def main() -> int:
                "hymba-1.5b": h_launches,
                "granite-moe-3b-a800m": g_launches,
                "llava-next-mistral-7b": l_launches,
-               "whisper-large-v3": w_launches}
+               "whisper-large-v3": w_launches,
+               "replay": replay_launches,
+               "replay-sharded": replay_sh_launches}
     launches = {k: sum(n.get(k, 0) for n in by_path.values())
                 for k in ("K1", "K2", "K3", "K4", "K5")}
 

@@ -22,8 +22,8 @@ random patch embeddings, then tokens), chatglm3-6b, qwen1.5-32b,
 deepseek-coder-33b and whisper-large-v3 (encoder-decoder: each request
 is encoder_len random frame embeddings, which the encoder reads, then
 the decoder's prompt of tokens). ``--mode sim --workload endpoints``
-needs the cost model, which is not ported yet (ROADMAP.md section 1,
-item 13).
+serves the assigned archs as the cost model
+(``repro_torch.workloads.costmodel``) prices them on an H100.
 """
 from __future__ import annotations
 
@@ -36,17 +36,17 @@ import time
 
 def run_sim_mode(args) -> dict:
     from repro_torch.server import ServerConfig, make_server
-    from repro_torch.workloads.traces import make_workload
+    from repro_torch.workloads.costmodel import endpoint_mix
+    from repro_torch.workloads.traces import azure_trace, make_workload, zipf_trace
 
     if args.workload == "endpoints":
-        raise ValueError("--workload endpoints needs the cost model "
-                         "(workloads/costmodel.py::endpoint_mix), which is "
-                         "not ported to repro_torch yet: item 13 in "
-                         "ROADMAP.md")
-    fns, trace = make_workload(args.workload, n_fns=args.n_fns,
-                               duration=args.duration,
-                               total_rps=args.rps,
-                               trace_id=args.trace_id, seed=args.seed)
+        fns = endpoint_mix(args.endpoint_shape)
+        trace = zipf_trace(fns, args.duration, args.rps, seed=args.seed)
+    else:
+        fns, trace = make_workload(args.workload, n_fns=args.n_fns,
+                                   duration=args.duration,
+                                   total_rps=args.rps,
+                                   trace_id=args.trace_id, seed=args.seed)
     kw = {}
     if args.policy in ("mqfq", "mqfq-sticky"):
         kw = dict(T=args.T, alpha=args.alpha)

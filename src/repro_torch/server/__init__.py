@@ -32,11 +32,13 @@ shims over this package.
 from repro_torch.server.config import ServerConfig, make_server, specs_from_endpoints
 from repro_torch.server.control import ControlPlane, DeviceState, DispatchDecision
 from repro_torch.server.events import (CompleteEvent, DispatchEvent, EventBus,
-                                       StateChangeEvent)
-from repro_torch.server.executors import (Server, SimExecutor,
-                                          WallClockExecutor)
+                                 StateChangeEvent)
+from repro_torch.server.executors import (Server, ShardedWallClockExecutor,
+                                    SimExecutor, WallClockExecutor)
 from repro_torch.server.metrics import (MergedFairness, MergedPools, RunResult,
-                                        StreamingStats, nearest_rank, quantile)
+                                  StreamingStats, nearest_rank, quantile)
+from repro_torch.server.shard import (ArrayVTBus, LocalVTBus, ShardedControlPlane,
+                                ShardRouter, hash_shard)
 from repro_torch.server.stub import StubEndpoint
 
 __all__ = [
@@ -44,6 +46,8 @@ __all__ = [
     "ControlPlane", "DeviceState", "DispatchDecision",
     "EventBus", "StateChangeEvent", "DispatchEvent", "CompleteEvent",
     "Server", "SimExecutor", "WallClockExecutor",
+    "ShardedControlPlane", "ShardedWallClockExecutor", "ShardRouter",
+    "LocalVTBus", "ArrayVTBus", "hash_shard",
     "MergedFairness", "MergedPools",
     "RunResult", "StreamingStats", "StubEndpoint",
     "nearest_rank", "quantile",

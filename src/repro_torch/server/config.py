@@ -169,26 +169,23 @@ def specs_from_endpoints(endpoints, *, demand: float = 0.5
         for fn_id, ep in endpoints.items()}
 
 
-# Modules of the reference control plane this port does not carry yet,
-# each with the ROADMAP.md item (section 1, "Modules to port") that
-# ports it. make_server refuses a config that would reach one.
-_NOT_PORTED = {
-    "sharding": "the sharded control plane (server/shard.py), item 15",
-    "datapath='pipeline'": "the cold-start data plane (repro.datapath), "
-                           "item 16",
-    "scenario": "scenarios and open-loop replay, item 17",
-}
-
-
-def _not_ported(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported to repro_torch yet: "
-                      f"{_NOT_PORTED[what]} in ROADMAP.md")
+def _adopt_scenario_faults(config, scenario, validate):
+    """A chaos scenario carries its seeded FaultPlan; adopt it unless the
+    caller pinned one explicitly (explicit config wins)."""
+    plan = getattr(scenario, "faults", None)
+    if plan is None or config.faults is not None:
+        return config
+    from dataclasses import replace
+    config = replace(config, faults=plan)
+    validate(config)
+    return config
 
 
 def make_server(config: ServerConfig, *,
                 fns: Optional[Dict[str, FunctionSpec]] = None,
                 endpoints: Optional[dict] = None,
-                policy: Optional[Policy] = None):
+                policy: Optional[Policy] = None,
+                vt_bus=None, vt_slots=None):
     """Build a Server from a frozen config.
 
     - ``executor="sim"``: requires ``fns``; drive it with
@@ -198,100 +195,157 @@ def make_server(config: ServerConfig, *,
       ``start() / submit() / drain() / stop()``.
     - ``policy``: optional pre-built Policy instance (tests/ablations);
       otherwise built from ``config.policy`` + ``config.policy_kwargs``.
-
-    The checks run in the reference's order. Sharding, the pipeline data
-    plane and scenarios are not ported yet; a config that asks for one
-    raises ``ValueError`` naming its ROADMAP item.
+      A sharded plane builds one policy *per shard* from the config, so
+      a pre-built instance is rejected there.
+    - ``vt_bus`` / ``vt_slots``: external cross-shard VT snapshot for
+      process-per-shard deployments (see ``repro.server.shard``); only
+      meaningful with ``sharding != "none"``.
     """
     from repro_torch.core.policies import make_policy
     from repro_torch.server.control import ControlPlane
     from repro_torch.server.events import EventBus
-    from repro_torch.server.executors import (Server, SimExecutor,
-                                              WallClockExecutor)
+    from repro_torch.server.executors import (Server, ShardedWallClockExecutor,
+                                        SimExecutor, WallClockExecutor)
+    from repro_torch.server.shard import ShardedControlPlane
 
     if config.sharding not in ("none", "hash", "sticky"):
         raise ValueError(f"unknown sharding {config.sharding!r}; "
                          f"expected 'none', 'hash' or 'sticky'")
-    if config.sharding != "none":
-        raise _not_ported("sharding")
     if config.datapath not in ("scalar", "pipeline"):
         raise ValueError(f"unknown datapath {config.datapath!r}; "
                          f"expected 'scalar' or 'pipeline'")
     if config.datapath == "pipeline":
-        raise _not_ported("datapath='pipeline'")
-    if config.prefetch:
+        if config.executor != "sim":
+            raise ValueError(
+                "datapath='pipeline' is sim-only: the wallclock executor "
+                "moves real bytes, so modeled link contention does not "
+                "apply there")
+        if config.sampling != "transition" or not config.batch_dispatch:
+            raise ValueError(
+                "datapath='pipeline' requires the fast event loop "
+                "(sampling='transition', batch_dispatch=True): the "
+                "per_event/per-token loops are pre-datapath differential "
+                "references and carry no TRANSFER events")
+    if config.prefetch and config.datapath != "pipeline":
         raise ValueError(
             "prefetch=True requires datapath='pipeline': the scalar "
             "plane has no background transfer machinery to prefetch on")
     if config.placement not in ("sticky", "time-to-resident"):
         raise ValueError(f"unknown placement {config.placement!r}; "
                          f"expected 'sticky' or 'time-to-resident'")
-    if config.p2p_bw:
-        raise ValueError(
-            "p2p_bw > 0 requires datapath='pipeline': the scalar "
-            "plane has no transfer fabric to migrate weights over")
-    if config.chunk_bytes is not None:
-        raise ValueError(
-            "chunk_bytes requires datapath='pipeline': the scalar "
-            "plane has no chunked transfers to overlap")
-    if config.placement != "sticky":
-        raise ValueError(
-            "placement='time-to-resident' requires "
-            "datapath='pipeline': its bids are link-model transfer "
-            "estimates")
+    if config.datapath != "pipeline":
+        if config.p2p_bw:
+            raise ValueError(
+                "p2p_bw > 0 requires datapath='pipeline': the scalar "
+                "plane has no transfer fabric to migrate weights over")
+        if config.chunk_bytes is not None:
+            raise ValueError(
+                "chunk_bytes requires datapath='pipeline': the scalar "
+                "plane has no chunked transfers to overlap")
+        if config.placement != "sticky":
+            raise ValueError(
+                "placement='time-to-resident' requires "
+                "datapath='pipeline': its bids are link-model transfer "
+                "estimates")
+    if config.chunk_bytes is not None and config.chunk_bytes <= 0:
+        raise ValueError("chunk_bytes must be a positive byte count")
     if config.p2p_bw < 0:
         raise ValueError("p2p_bw must be >= 0 (bytes/s; 0 disables)")
 
-    plan = config.faults
-    if plan is not None:
-        if config.sampling != "transition" or not config.batch_dispatch:
+    def _validate_faults(cfg):
+        plan = cfg.faults
+        if plan is None:
+            return
+        if cfg.sampling != "transition" or not cfg.batch_dispatch:
             raise ValueError(
                 "faults= requires the fast event loop "
                 "(sampling='transition', batch_dispatch=True): the "
                 "per_event/per-token loops are pre-fault differential "
                 "references and carry no fault events")
-        if config.device_layer != "indexed":
+        if cfg.device_layer != "indexed":
             raise ValueError(
                 "faults= requires device_layer='indexed': the reference "
                 "layer is the pre-fault differential baseline")
         bad = sorted({f.dev_id for f in getattr(plan, "device_faults", ())
-                      if f.dev_id >= config.n_devices}
+                      if f.dev_id >= cfg.n_devices}
                      | {f.dev_id for f in getattr(plan, "transfer_faults", ())
-                        if f.dev_id >= config.n_devices})
+                        if f.dev_id >= cfg.n_devices})
         if bad:
             raise ValueError(
                 f"fault plan targets device ids {bad} but the server has "
-                f"n_devices={config.n_devices}; generate the plan with "
-                f"the server's device count")
-        if getattr(plan, "transfer_faults", ()):
+                f"n_devices={cfg.n_devices}; generate the plan (or the "
+                f"chaos scenario) with the server's device count")
+        if getattr(plan, "transfer_faults", ()) \
+                and cfg.datapath != "pipeline":
             raise ValueError(
                 "transfer faults require datapath='pipeline': the "
                 "scalar plane has no in-flight transfers to abort")
-    if config.n_shards != 1:
+        if cfg.executor == "wallclock" and cfg.sharding != "none" \
+                and (getattr(plan, "device_faults", ())
+                     or getattr(plan, "endpoint_faults", ())
+                     or getattr(plan, "transfer_faults", ())):
+            raise ValueError(
+                "sharded wallclock supports feeder faults only; "
+                "device/endpoint/transfer faults need the monolithic "
+                "wallclock executor or the (sharded or monolithic) sim")
+
+    _validate_faults(config)
+    sharded = config.sharding != "none"
+    if not sharded and config.n_shards != 1:
         raise ValueError("n_shards > 1 requires sharding='hash' or "
                          "'sticky' (sharding='none' is the monolithic "
                          "reference plane)")
-
-    if policy is None:
+    if not sharded and (vt_bus is not None or vt_slots is not None):
+        raise ValueError("vt_bus/vt_slots require sharding='hash' or "
+                         "'sticky': the monolithic plane runs no "
+                         "cross-shard VT sync, so the bus would be "
+                         "silently ignored")
+    if sharded and policy is not None:
+        raise ValueError("a sharded plane builds one policy per shard "
+                         "from config.policy/policy_kwargs; a pre-built "
+                         "policy= instance cannot be shared")
+    if policy is None and not sharded:
         policy = make_policy(config.policy, **dict(config.policy_kwargs))
     bus = EventBus()
+
+    def build_control():
+        if sharded:
+            return ShardedControlPlane(fns, config, bus, vt_bus=vt_bus,
+                                       vt_slots=vt_slots)
+        return ControlPlane(policy, fns, config, bus)
+
+    scenario = None
     if config.executor == "sim":
-        if config.scenario:
-            raise _not_ported("scenario")
+        if fns is None and config.scenario:
+            from repro_torch.workloads.scenarios import make_scenario
+            scenario = make_scenario(config.scenario,
+                                     **dict(config.scenario_kwargs))
+            fns = scenario.fns
+            config = _adopt_scenario_faults(config, scenario,
+                                            _validate_faults)
         if fns is None:
-            raise ValueError("sim executor requires fns= (scenarios, "
-                             "the reference's other source of fns, wait "
-                             "for item 17 in ROADMAP.md)")
-        control = ControlPlane(policy, fns, config, bus)
+            raise ValueError("sim executor requires fns= (or scenario=)")
+        control = build_control()
         executor = SimExecutor(control, config)
     elif config.executor == "wallclock":
         if config.scenario:
-            raise _not_ported("scenario")
+            # historically rejected ("drive it via submit()"); now the
+            # open-loop replay harness (repro.replay) is the wallclock
+            # consumer of a configured scenario: fns come from the mix,
+            # server.replay_open_loop() paces its stream. Endpoints are
+            # still the caller's job — one per scenario function.
+            from repro_torch.workloads.scenarios import make_scenario
+            scenario = make_scenario(config.scenario,
+                                     **dict(config.scenario_kwargs))
+            if fns is None:
+                fns = scenario.fns
+            config = _adopt_scenario_faults(config, scenario,
+                                            _validate_faults)
         if endpoints is None:
             raise ValueError("wallclock executor requires endpoints=")
         if fns is None:
             fns = specs_from_endpoints(endpoints)
-        control = ControlPlane(policy, fns, config, bus)
+        control = build_control()
         injector = getattr(control, "injector", None)
         if injector is not None and injector.plan.endpoint_faults:
             # count-triggered endpoint faults inject from inside the
@@ -300,7 +354,12 @@ def make_server(config: ServerConfig, *,
             from repro_torch.faults import FaultyEndpoint
             endpoints = {fn: FaultyEndpoint(ep, injector)
                          for fn, ep in endpoints.items()}
-        executor = WallClockExecutor(control, endpoints, config)
+        if sharded:
+            executor = ShardedWallClockExecutor(control, endpoints, config)
+        else:
+            executor = WallClockExecutor(control, endpoints, config)
     else:
         raise ValueError(f"unknown executor {config.executor!r}")
-    return Server(config, control, executor, bus)
+    server = Server(config, control, executor, bus)
+    server.scenario = scenario
+    return server

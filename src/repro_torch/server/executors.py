@@ -7,15 +7,19 @@
                         worker pool over real ``TorchEndpoint`` execution;
                         service times are measured, not modeled.
 
-Both call the ControlPlane methods in the same order per event as
-``repro.server.executors``: on_arrival / drain / on_complete / sample.
-Dispatch is batched (paper §5: the dispatcher thread services every
-freed token / newly-eligible queue in one pass). ``SimExecutor`` is the
-reference's class as it is; the ``Server`` facade fronts whichever
-executor the config selects. The port's copy cuts the sharded executor
-(``ShardedWallClockExecutor``, ROADMAP.md section 1, item 15), and
-``make_server`` refuses the configs that would reach the sim's data
-plane (item 16) or a scenario (item 17).
+Both call exactly the same ControlPlane methods in the same order per
+event: on_arrival / drain / on_complete / sample. Dispatch is batched
+(paper §5: the dispatcher thread services every freed token /
+newly-eligible queue in one pass); each decision is realized before the
+next choose, so the sequence is bit-identical to the seed's
+one-``try_dispatch``-per-call loop. The sim executor's default loop
+(``sampling="transition"`` + ``batch_dispatch=True``) inlines that
+drain as a direct ``ControlPlane.dispatch_once`` loop — no per-event
+decision list or realize closure; ``sampling="per_event"`` and/or
+``batch_dispatch=False`` run the retained reference loops (per-event
+``drain`` with a fresh closure, or the seed's per-token loop) for the
+differential tests. The ``Server`` facade fronts whichever executor the
+config selects.
 """
 from __future__ import annotations
 
@@ -860,6 +864,164 @@ class WallClockExecutor:
                 self._wake.set()
 
 
+class ShardedWallClockExecutor:
+    """Per-shard dispatcher threads over a ``ShardedControlPlane``: one
+    ``WallClockExecutor`` (own lock, dispatcher thread, worker pool,
+    condition-variable drain) per shard, so dispatch on shard A never
+    serializes behind completions or submits on shard B. Shards share
+    the invocation-id counter, the clock origin, the endpoint registry
+    and the event bus; everything else — policy, scheduler index, memory
+    managers, warm pool, D-tokens, fairness — is shard-private.
+
+    A background epoch thread runs the cross-shard VT sync: it takes
+    each shard's lock only long enough to read ``min_pending_vt`` /
+    inject the max-of-mins floor, never two locks at once (publication
+    goes through the sharded plane's lock-free VT bus, so the snapshot
+    other shards — or other *processes*, with an external bus — read may
+    be one epoch stale, which is the designed drift bound)."""
+
+    def __init__(self, sharded, endpoints: Dict, config):
+        self.sharded = sharded
+        self.endpoints = endpoints
+        self.config = config
+        self._t0 = time.monotonic()
+        ids = itertools.count()
+        self.execs: List[WallClockExecutor] = [
+            WallClockExecutor(shard, endpoints, shard.config,
+                              id_counter=ids, subscribe_state=False,
+                              t0=self._t0)
+            for shard in sharded.shards]
+        self._router_lock = threading.Lock()
+        # hash routing is a stateless crc32 — submits skip the router
+        # lock entirely (and the shared assign cache) in that mode
+        if sharded.router.mode == "hash":
+            from repro_torch.server.shard import hash_shard
+            n = len(sharded.shards)
+            self._hash_route = lambda fn_id: hash_shard(fn_id, n)
+        else:
+            self._hash_route = None
+        self._stop_evt = threading.Event()
+        self._vt_thread: Optional[threading.Thread] = None
+        # one bus subscription for the whole plane: prefetches are
+        # delegated to the owning shard's executor/worker pool
+        sharded.bus.on_state_change(self._on_state_change)
+
+    def now(self) -> float:
+        return time.monotonic() - self._t0
+
+    def _on_state_change(self, ev) -> None:
+        if self._hash_route is not None:
+            k = self._hash_route(ev.fn_id)
+        else:
+            k = self.sharded.router.assign.get(ev.fn_id)
+            if k is None:
+                k = 0
+        self.execs[k]._on_state_change(ev)
+
+    # -- API ------------------------------------------------------------------
+    def submit(self, fn_id: str, request: Optional[dict] = None
+               ) -> Invocation:
+        if self._hash_route is not None:    # stateless: no router lock
+            k = self._hash_route(fn_id)
+        else:
+            with self._router_lock:         # sticky mutates shared state
+                k = self.sharded.route(fn_id)
+        return self.execs[k].submit(fn_id, request)
+
+    def start(self) -> None:
+        for ex in self.execs:
+            ex.start()
+        self._vt_thread = threading.Thread(target=self._vt_loop,
+                                           daemon=True)
+        self._vt_thread.start()
+
+    def drain(self, timeout: float = 300.0) -> None:
+        """Block until every shard is drained. Each per-shard drain
+        evaluates its pending/inflight predicate *under that shard's
+        lock* (a lock-free peek could observe the instant between a
+        queue pop and the realize that bumps ``_inflight`` and declare
+        a mid-dispatch shard clean). Work cannot migrate between
+        shards, so one locked pass per shard suffices — as with the
+        monolithic executor, concurrent submits void the guarantee."""
+        deadline = time.monotonic() + timeout
+        for ex in self.execs:
+            # keep a positive budget so an already-idle shard checked
+            # after the deadline still returns clean instead of raising
+            ex.drain(max(deadline - time.monotonic(), 1e-3))
+
+    def stop(self) -> RunResult:
+        self._stop_evt.set()
+        if self._vt_thread is not None:
+            self._vt_thread.join(timeout=10)
+        results = [ex.stop() for ex in self.execs]
+        sh = self.sharded
+        invocations = [i for r in results for i in r.invocations]
+        invocations.sort(key=lambda i: (
+            i.completion if i.completion is not None else float("inf"),
+            i.inv_id))
+        # device-count-weighted merge of the per-shard time-integrals
+        util_integral = sum(
+            r.util_integral * len(r.devices) for r in results
+        ) / max(sh._n_dev, 1)
+        duration = max((r.duration for r in results), default=0.0)
+        inj = getattr(sh, "injector", None)
+        return RunResult(sh.policy.name, invocations, sh.fairness,
+                         sh.pool, [], sh.devices, duration,
+                         util_integral=util_integral,
+                         faults=inj.snapshot() if inj is not None else None,
+                         vt_sync_errors=sh.vt_sync_errors)
+
+    @property
+    def completed(self) -> List[Invocation]:
+        out: List[Invocation] = []
+        for ex in self.execs:
+            out.extend(ex.completed)
+        return out
+
+    # -- cross-shard VT sync ---------------------------------------------------
+    def _vt_loop(self) -> None:
+        epoch = self.sharded.vt_epoch
+        while not self._stop_evt.wait(epoch):
+            try:
+                self.sync_vt_once()
+            except Exception:
+                # a failing epoch (e.g. a transiently broken external
+                # bus) must not silently kill cross-shard fairness for
+                # the rest of the run: count it and keep syncing
+                self.sharded.vt_sync_errors += 1
+
+    def sync_vt_once(self) -> None:
+        """One VT epoch (also called directly by tests/benchmarks):
+        publish each shard's min pending VT under that shard's lock,
+        take the lock-free max-of-mins snapshot, raise every shard's
+        floor. Never holds two shard locks at once."""
+        sh = self.sharded
+        bus = sh.vt_bus
+        prev = sh._prev_floor
+        for ex, shard, slot in zip(self.execs, sh.shards, sh.vt_slots):
+            with ex._lock:
+                vt = shard.policy.min_pending_vt()
+                gvt = getattr(shard.policy, "global_vt", None)
+            if prev > float("-inf") and gvt is not None:
+                lag = prev - gvt
+                if lag > sh.vt_max_lag:
+                    sh.vt_max_lag = lag
+            if vt is not None:
+                bus.publish(slot, vt)
+        floor = bus.floor()
+        if floor > float("-inf"):
+            for ex, shard in zip(self.execs, sh.shards):
+                with ex._lock:
+                    shard.policy.raise_vt_floor(floor)
+                # a raised floor can un-throttle queues: wake the
+                # shard's dispatcher now instead of letting the release
+                # wait out the 50 ms idle-poll backstop
+                ex._wake.set()
+            sh.vt_floor = floor
+            sh._prev_floor = floor
+        sh.vt_syncs += 1
+
+
 class Server:
     """Facade over (config, control plane, executor). Use ``run_trace``
     with the sim executor; ``start/submit/drain/stop`` with wallclock."""
@@ -885,15 +1047,16 @@ class Server:
         return self.run_trace(self.scenario.stream())
 
     def replay_open_loop(self, scenario=None, **kw):
-        """Open-loop wall-clock replay (``repro.replay``) is not ported
-        yet."""
-        raise ValueError("replay_open_loop is not ported to repro_torch "
-                         "yet: scenarios and open-loop replay, item 17 "
-                         "in ROADMAP.md")
+        """Open-loop wall-clock replay (see ``repro.replay``): paced
+        release at trace timestamps, per-invocation lateness, sharded
+        feeding. Wall-clock executors only."""
+        from repro_torch.replay import replay_open_loop
+        return replay_open_loop(self, scenario, **kw)
 
     # -- wallclock -----------------------------------------------------------
     def _wallclock(self):
-        if not isinstance(self.executor, WallClockExecutor):
+        if not isinstance(self.executor,
+                          (WallClockExecutor, ShardedWallClockExecutor)):
             raise TypeError("this method requires executor='wallclock'")
         return self.executor
 

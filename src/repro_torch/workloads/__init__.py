@@ -2,5 +2,8 @@ from repro_torch.workloads.spec import FunctionSpec, PAPER_FUNCTIONS, function_c
 from repro_torch.workloads.traces import (TraceEvent, zipf_trace, azure_trace,
                                     make_workload, zipf_stream, azure_stream,
                                     merge_streams)
-# scenarios and the Azure loader (repro.workloads.scenarios /
-# azure_loader) wait for ROADMAP.md section 1, item 17
+from repro_torch.workloads.scenarios import SCENARIOS, Scenario, make_scenario
+from repro_torch.workloads.azure_loader import (AzureRow, counts_stream,
+                                          iter_azure_rows,
+                                          load_azure_scenario,
+                                          synthetic_azure_rows)

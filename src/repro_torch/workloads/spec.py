@@ -13,6 +13,8 @@ from __future__ import annotations
 from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional
 
+from repro_torch.datapath.stages import ColdStartStages
+
 GB = 1024 ** 3
 
 
@@ -29,7 +31,7 @@ class FunctionSpec:
     # explicit cold-start stage decomposition (repro.datapath); None for
     # legacy specs — the pipeline datapath then decomposes ``cold_init``
     # via ``repro.datapath.stages.stages_for``
-    stages: Optional[object] = None  # ColdStartStages in repro.datapath
+    stages: Optional[ColdStartStages] = None
 
     def with_id(self, fn_id: str) -> "FunctionSpec":
         return replace(self, fn_id=fn_id)

@@ -107,18 +107,7 @@ def test_control_plane_decisions_match_reference(policy, T, n_devices, d,
     assert port == ref
 
 
-def test_make_server_refuses_unported_paths():
-    from repro_torch.server import ServerConfig, make_server
-    for cfg, word in [(ServerConfig(executor="sim", datapath="pipeline"),
-                       "item 16"),
-                      (ServerConfig(executor="wallclock", sharding="hash",
-                                    n_shards=2, n_devices=2), "sharded"),
-                      (ServerConfig(executor="wallclock",
-                                    datapath="pipeline"), "data plane"),
-                      (ServerConfig(executor="wallclock",
-                                    scenario="azure-longtail"), "replay")]:
-        with pytest.raises(ValueError, match=word):
-            make_server(cfg, endpoints={})
+def test_make_policy_builds_the_reference_policy():
     from repro_torch.core.policies import make_policy
     from repro_torch.core.reference import ReferenceMQFQSticky
     assert isinstance(make_policy("ref-mqfq-sticky"), ReferenceMQFQSticky)

@@ -45,7 +45,12 @@ def test_scan_covers_the_package():
             "launch/train.py", "examples/train_lm.py",
             "batchsim/state.py", "batchsim/step.py", "batchsim/sweep.py",
             "server/executors.py", "runtime/simulate.py",
-            "runtime/engine.py"} <= rel
+            "runtime/engine.py", "datapath/__init__.py",
+            "datapath/stages.py", "datapath/link.py", "datapath/device.py",
+            "datapath/fabric.py", "server/shard.py",
+            "workloads/scenarios.py", "workloads/azure_loader.py",
+            "workloads/costmodel.py", "analysis/flops.py",
+            "replay.py"} <= rel
 
 
 @pytest.mark.parametrize("path", _scanned_files(),
@@ -54,6 +59,9 @@ def test_no_jax_or_reference_imports(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+    # nor by name at run time
+    assert not re.search(r"import_module\(f?[\"'](jax|repro)\b",
+                         path.read_text()), path
 
 
 _IMPORT = re.compile(r"^(\s*)(from|import) repro\.", re.M)
@@ -77,7 +85,12 @@ VERBATIM = ["runtime/invocation.py", "core/flow.py", "core/index.py",
             "configs/whisper_large_v3.py", "training/data.py",
             "training/__init__.py", "core/reference.py",
             "memory/reference.py", "memory/__init__.py", "core/policies.py",
-            "workloads/traces.py", "runtime/simulate.py"]
+            "workloads/traces.py", "runtime/simulate.py",
+            "datapath/__init__.py", "datapath/stages.py", "datapath/link.py",
+            "datapath/device.py", "datapath/fabric.py", "server/shard.py",
+            "server/config.py", "workloads/spec.py", "workloads/__init__.py",
+            "workloads/scenarios.py", "workloads/azure_loader.py",
+            "replay.py"]
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -85,35 +98,73 @@ def test_control_plane_copy_is_verbatim(rel):
     assert (PORT / rel).read_text() == _renamed((REF / rel).read_text())
 
 
+def _ref(rel: str) -> str:
+    return _renamed((REF / rel).read_text())
+
+
+def _without(text: str, start: str, end: str) -> str:
+    """``text`` with the span from ``start`` up to ``end`` cut out."""
+    i = text.index(start)
+    return text[:i] + text[text.index(end, i):]
+
+
 def test_cut_modules_keep_their_carried_parts_verbatim():
     """Where the copy cuts code, what it carries stays the reference's:
-    the sim and wall-clock executors, ``Server.run_trace``, the server
-    config, the policy classes (compared after the import rename)."""
+    the executors' module but for the endpoint class its docstring names,
+    the server package's exports, the sim launcher, the policy classes
+    (compared after the import rename)."""
+    port_ex = (PORT / "server/executors.py").read_text()
+    assert port_ex == _ref("server/executors.py").replace(
+        "over real ``JaxEndpoint`` execution;",
+        "over real ``TorchEndpoint`` execution;", 1)
+    # the registry imports each config module by name
+    assert (PORT / "configs/__init__.py").read_text() == \
+        _ref("configs/__init__.py").replace(
+            'import_module(f"repro.configs.',
+            'import_module(f"repro_torch.configs.')
+    # server/__init__.py: the module docstring only
+    doc_end = '"""\nfrom '
+    assert _without((PORT / "server/__init__.py").read_text(), '"""',
+                    doc_end) == _without(_ref("server/__init__.py"), '"""',
+                                         doc_end)
     from repro.core import policies as ref_pol
-    from repro.server import config as ref_cfg
-    from repro.server import executors as ref_ex
+    from repro.launch import serve as ref_serve
     from repro_torch.core import policies as port_pol
-    from repro_torch.server import config as port_cfg
-    from repro_torch.server import executors as port_ex
-    pairs = [(ref_ex.WallClockExecutor, port_ex.WallClockExecutor),
-             (ref_ex.SimExecutor, port_ex.SimExecutor),
-             (ref_ex.Server.run_trace, port_ex.Server.run_trace),
-             (ref_ex.Server.run_scenario, port_ex.Server.run_scenario),
-             (ref_cfg.ServerConfig, port_cfg.ServerConfig),
-             (ref_cfg.specs_from_endpoints, port_cfg.specs_from_endpoints)]
+    from repro_torch.launch import serve as port_serve
+    pairs = [(ref_serve.run_sim_mode, port_serve.run_sim_mode)]
     pairs += [(getattr(ref_pol, n), getattr(port_pol, n))
               for n in ("FCFS", "Batch", "SJF", "EEVDF")]
     for ref, port in pairs:
         assert inspect.getsource(port) == \
             _renamed(inspect.getsource(ref)), ref
-    # spec.py drops only the data plane's import, used by one annotation
-    spec_ref = (REF / "workloads/spec.py").read_text()
-    spec_port = (PORT / "workloads/spec.py").read_text()
-    assert spec_port.replace(
-        "    stages: Optional[object] = None  # ColdStartStages in "
-        "repro.datapath",
-        "    stages: Optional[ColdStartStages] = None") == spec_ref.replace(
-        "from repro.datapath.stages import ColdStartStages\n\n", "")
+
+
+# the cost model's one cut: its hardware constants are the H100's
+HARDWARE_BLOCKS = [("analysis/flops.py", "# --- hardware (",
+                    "\n\ndef roofline_terms"),
+                   ("workloads/costmodel.py", "# endpoint-serving",
+                    "\n\ndef service_time")]
+
+
+@pytest.mark.parametrize("rel,start,end", HARDWARE_BLOCKS,
+                         ids=[b[0] for b in HARDWARE_BLOCKS])
+def test_cost_model_cuts_only_its_hardware_block(rel, start, end):
+    port = (PORT / rel).read_text()
+    assert _without(port, start, end) == _without(_ref(rel), start, end)
+    block = port[port.index(start):port.index(end)]
+    assert "TPU" not in block and "v5e" not in block and "XLA" not in block
+
+
+def test_cost_model_constants_are_the_h100s():
+    from repro.analysis import flops as ref_flops
+    from repro.workloads import costmodel as ref_cm
+    from repro_torch.analysis import flops
+    from repro_torch.workloads import costmodel as cm
+    assert (flops.PEAK_FLOPS, flops.HBM_BW, flops.ICI_BW) == \
+        (989e12, 3.35e12, 450e9)
+    assert (cm.DEFAULT_CHIPS, cm.H2D_BW, cm.MFU) == (1, 64e9, ref_cm.MFU)
+    assert cm.PEAK_FLOPS == flops.PEAK_FLOPS != ref_flops.PEAK_FLOPS
+    assert 0.0 < cm.COMPILE_TIME < ref_cm.COMPILE_TIME
 
 
 def test_configs_match_reference():
@@ -121,13 +172,9 @@ def test_configs_match_reference():
     from repro.configs import get_config as ref_get
     from repro_torch.configs import ARCH_IDS, get_config
     from repro.configs import ARCH_IDS as REF_IDS
-    assert ARCH_IDS == ["qwen3-1.7b", "xlstm-350m", "hymba-1.5b",
-                        "granite-moe-3b-a800m", "qwen3-moe-30b-a3b",
-                        "llava-next-mistral-7b", "chatglm3-6b",
-                        "qwen1.5-32b", "deepseek-coder-33b",
-                        "whisper-large-v3"]
-    # every arch of the reference, the encoder-decoder included
-    assert sorted(ARCH_IDS) == sorted(REF_IDS)
+    # every arch of the reference, the encoder-decoder included, in the
+    # reference's order (the cost model's endpoint mix follows it)
+    assert ARCH_IDS == REF_IDS and len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
         port, ref = get_config(arch), ref_get(arch)
         assert dataclasses.asdict(port) == dataclasses.asdict(ref), arch

@@ -333,9 +333,3 @@ def test_serve_mode_sim_matches_reference(workload, capsys):
     assert got == want
     assert port_out == ref_out
     assert json.loads(port_out) == want and want["events"] > 0
-
-
-def test_serve_mode_sim_refuses_the_cost_model_workload():
-    from repro_torch.launch import serve
-    with pytest.raises(ValueError, match="item 13"):
-        serve.main(["--mode", "sim", "--workload", "endpoints"])
