@@ -126,7 +126,23 @@ exits non-zero:
                share of one profiled chunk, the serial scalar plane's
                seconds for the same lanes, and 4 sticky lanes held to it
                per invocation. No kernel wrapper's count moves.
-  9. the ``kernels`` line, the nvidia-smi line, and last
+  9. mesh    — the sharded paths (``repro_torch.utils.shardctx``,
+               DTensor) on a 1x1 mesh over a world-size-1 NCCL group
+               (an in-process HashStore, no TCP): one full-width
+               qwen3-1.7b request (B 4, S 1024, 16 greedy steps) with its
+               weights distributed by ``partition_specs`` under
+               ``use_mesh``, whose tokens and K1/K2 launches must equal
+               the unsharded endpoint's, both wall times printed;
+               full-width granite-moe-3b-a800m through ``moe_apply_ep``
+               against ``moe_apply`` (prefill and 4 decode steps, within
+               the bf16 model limit); one full-width qwen3-1.7b float32
+               AdamW step at S 1024, B 4 with ZeRO-1 and with ZeRO-2 (2
+               microbatches) against the unsharded step, per leaf; and,
+               in parallel on the host, ``python -m
+               repro_torch.launch.dryrun`` for qwen3-1.7b and
+               granite-moe-3b-a800m on the 16x16 mesh, which must exit
+               0 (per-device GB, collective GiB by kind, seconds).
+ 10. the ``kernels`` line, the nvidia-smi line, and last
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -738,13 +754,16 @@ def layer_max_abs(transformer, run):
     return [float(x.float().abs().max()) for x in seen]
 
 
-def trajectory(model, params, batch, plan, steps, feed=None):
+def trajectory(model, params, batch, plan, steps, feed=None,
+               grad_mode=torch.inference_mode):
     """Float32 logits (steps + 1, B, vocab) of a prefill of ``batch`` and
     ``steps`` decode steps, each fed ``feed[:, i]`` or, without ``feed``,
-    the greedy token; returns them and the tokens fed."""
+    the greedy token; returns them and the tokens fed. DTensors take
+    ``grad_mode=torch.no_grad``: their views cannot be inference
+    tensors."""
     S = model.decode_start(batch)
     logits, fed = [], []
-    with torch.inference_mode():
+    with grad_mode():
         lg, cache = model.prefill_fn(params, batch, plan.length, plan.ring)
         for i in range(steps + 1):
             logits.append(lg.float())
@@ -2010,6 +2029,276 @@ def batchsim_phase(dev, smi) -> None:
                              f"{bad}")
 
 
+# --- phase 9: the mesh --------------------------------------------------------
+
+# the dry-run on the production mesh, in its own process on the host
+# (fake process group of 256, fake tensors, the kernels' plain versions)
+MESH_DRYRUN = ["--arch", "qwen3-1.7b,granite-moe-3b-a800m", "--shape", "all",
+               "--mesh", "single"]
+MESH_DRYRUN_TIMEOUT_S = 600
+# the sharded training steps: full-width qwen3-1.7b in float32 (so that
+# one AdamW step moves the parameters), S 1024, B 4, ZeRO-2 in 2
+# microbatches
+MESH_TRAIN_SEQ, MESH_TRAIN_BATCH, MESH_TRAIN_MICROBATCH = 1024, 4, 2
+
+
+def full(x):
+    """A DTensor's whole value (plain tensors as they are)."""
+    from torch.distributed.tensor import DTensor
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def start_dryrun():
+    """Start ``repro_torch.launch.dryrun`` on the host (no card visible)
+    in its own process; returns (process, its output directory)."""
+    import shutil
+    out = ROOT / "build" / "dryrun"
+    shutil.rmtree(out, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *MESH_DRYRUN,
+         "--out", str(out)], env=env, cwd=str(ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def finish_dryrun(proc, out) -> None:
+    """Wait for the dry-run; it must exit 0. One line per record: the
+    per-device GB, collective GiB by kind and seconds."""
+    log, _ = proc.communicate(timeout=MESH_DRYRUN_TIMEOUT_S)
+    (ROOT / "build" / "dryrun.log").write_text(log)
+    if proc.returncode != 0:
+        raise AssertionError(f"dry-run exited {proc.returncode}:\n"
+                             f"{log[-3000:]}")
+    recs = [json.loads(p.read_text()) for p in sorted(out.glob("*.json"))]
+    for r in recs:
+        emit(phase="mesh", dryrun=f"{r['mesh']} {r['arch']} x {r['shape']}",
+             argument_gb=r["memory"]["argument_bytes"] / 2**30,
+             peak_per_device_gb=r["memory"]["peak_per_device_gb"],
+             collective_gib_by_kind={k: v / 2**30 for k, v in
+                                     r["collectives"]["by_kind_bytes"]
+                                     .items()},
+             collective_counts=r["collectives"]["counts"],
+             seconds=r["lower_compile_s"])
+    if len(recs) != 8:
+        raise AssertionError(f"dry-run wrote {len(recs)} records, not 8")
+
+
+def mesh_greedy(model, params, batch, plan, steps, mesh=None):
+    """The endpoint's request (``TorchEndpoint._run``): prefill, then
+    ``steps`` greedy decode steps; under ``mesh`` the params are
+    DTensors and each step's token goes back sharded over ``data``.
+    Returns the decode tokens (B, steps) on the host. Under no_grad, not
+    inference_mode as the endpoint: a DTensor's views cannot be inference
+    tensors."""
+    from repro_torch.utils.shardctx import P, distribute
+    with torch.no_grad():
+        logits, cache = model.prefill_fn(params, batch, cache_len=plan.length,
+                                         ring=plan.ring)
+        pos = model.decode_start(batch)
+        toks = []
+        for i in range(steps):
+            tok = torch.argmax(full(logits), -1)[:, None].to(torch.int32)
+            if mesh is not None:
+                tok = distribute(tok, P("data"), mesh)
+            logits, cache = model.decode_fn(params, cache, tok, pos + i,
+                                            ring=plan.ring)
+            toks.append(full(tok))
+        toks.append(torch.argmax(full(logits), -1)[:, None]
+                    .to(torch.int32))
+        return torch.cat(toks[1:], dim=1).cpu()
+
+
+def mesh_serve(TorchEndpoint, cfg, dev, mesh, wrappers, smi):
+    """One full-width qwen3-1.7b request (prefill B 4 x S 1024, 16 greedy
+    decode steps) through the unsharded endpoint and through the same
+    weights and prompt distributed by ``partition_specs`` under
+    ``use_mesh``: equal tokens, equal K1 and K2 launches. Returns the
+    sharded run's launches."""
+    from repro_torch.utils.shardctx import P, distribute, use_mesh
+    ep = TorchEndpoint("mesh-qwen", cfg, seed=0, serve_seq=SERVE_SEQ,
+                       serve_batch=SERVE_BATCH, decode_steps=DECODE_STEPS,
+                       device=dev)
+    ep.upload()
+    ep.compile()
+    model = ep.model
+    seed = 7
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.monotonic()
+    want = torch.from_numpy(ep.execute({"seed": seed})["tokens"])
+    t_plain = time.monotonic() - t0
+    plain = {k: w.launches for k, w in wrappers.items()}
+
+    specs = model.partition_specs(mesh)
+    params = distribute(ep.device_params, specs, mesh)
+    batch = model.make_batch(ep.serve_shape,
+                             torch.Generator(dev).manual_seed(seed), dev)
+    dbatch = {k: distribute(v, P("data"), mesh) for k, v in batch.items()}
+    with use_mesh(mesh):
+        # warm-up: the first DTensor call of each op settles its sharding
+        mesh_greedy(model, params, dbatch, ep.plan, 1, mesh)
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.monotonic()
+        got = mesh_greedy(model, params, dbatch, ep.plan, DECODE_STEPS,
+                          mesh)
+        torch.cuda.synchronize()
+        t_mesh = time.monotonic() - t0
+    sharded = {k: w.launches for k, w in wrappers.items()}
+    emit(phase="mesh", model="qwen3-1.7b full width bf16", mesh="1x1 nccl",
+         B=SERVE_BATCH, S=SERVE_SEQ, decode_steps=DECODE_STEPS,
+         tokens_equal=bool(torch.equal(got, want)),
+         launches_unsharded=plain, launches_sharded=sharded,
+         wall_s_unsharded=t_plain, wall_s_sharded=t_mesh, nvidia_smi=smi)
+    if not torch.equal(got, want):
+        raise AssertionError("sharded tokens differ from the endpoint's")
+    if sharded != plain or not sharded["K1"] or not sharded["K2"]:
+        raise AssertionError(f"launches: sharded {sharded}, unsharded "
+                             f"{plain}")
+    del ep, params
+    return sharded
+
+
+def mesh_moe(gcfg, dev, mesh):
+    """Full-width granite-moe-3b-a800m, prefill and 4 decode steps on fed
+    tokens: ``moe_apply_ep`` under the mesh (its per-shard
+    ``_local_moe`` must run in every block) against ``moe_apply``
+    without, within BF16_MODEL_REL_TOL."""
+    from repro_torch.models import build_model, decode_cache_plan, moe
+    from repro_torch.utils.shardctx import P, distribute, use_mesh
+    t0 = time.monotonic()
+    model = build_model(gcfg)
+    params = model.init_params(torch.Generator(dev).manual_seed(0), dev)
+    plan = decode_cache_plan(gcfg, SERVE_SEQ)
+    g = torch.Generator(dev).manual_seed(0)
+    batch = {"tokens": torch.randint(0, gcfg.vocab_size,
+                                     (SERVE_BATCH, SERVE_SEQ), device=dev,
+                                     generator=g)}
+    plain, fed = trajectory(model, params, batch, plan, 4)
+    calls = []
+    local_moe = moe._local_moe
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return local_moe(*a, **kw)
+    dparams = distribute(params, model.partition_specs(mesh), mesh)
+    dbatch = {k: distribute(v, P("data"), mesh) for k, v in batch.items()}
+    moe._local_moe = counted
+    try:
+        with use_mesh(mesh):
+            ep, _ = trajectory(model, dparams, dbatch, plan, 4,
+                               distribute(fed, P("data"), mesh),
+                               grad_mode=torch.no_grad)
+    finally:
+        moe._local_moe = local_moe
+    ep = full(ep)
+    top = float(plain.abs().max())
+    rel = max_err(ep, plain) / max(top, 1e-30)
+    emit(phase="mesh", model="granite-moe-3b-a800m full width bf16",
+         path="moe_apply_ep vs moe_apply", B=SERVE_BATCH, S=SERVE_SEQ,
+         decode_steps=4, local_moe_calls=len(calls),
+         max_logit_diff=max_err(ep, plain), max_abs_logit=top, rel=rel,
+         bitwise_equal=bool(torch.equal(ep, plain)),
+         rel_tol=BF16_MODEL_REL_TOL, seconds=time.monotonic() - t0)
+    if len(calls) != gcfg.n_layers * 5:
+        raise AssertionError(f"moe_apply_ep ran _local_moe {len(calls)} "
+                             f"times")
+    if not rel < BF16_MODEL_REL_TOL:
+        raise AssertionError(f"granite moe_apply_ep vs moe_apply: {rel}")
+
+
+def mesh_train(cfg, dev, mesh):
+    """Full-width qwen3-1.7b in float32, one AdamW step at S 1024, B 4:
+    ZeRO-1 (m, v in the ZeRO layout) and ZeRO-2 (2 microbatches, grads
+    and accumulator pinned too) under the mesh against the unsharded
+    step, per leaf as ``params_close_after_adamw``."""
+    from repro_torch.launch.specs import zero1_shardings
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.trainer import make_train_step, trainable
+    from repro_torch.utils.shardctx import (P, constrain, distribute,
+                                            use_mesh)
+    t0 = time.monotonic()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model = build_model(cfg32)
+    init = model.init_params(torch.Generator(dev).manual_seed(3), dev)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (MESH_TRAIN_BATCH, MESH_TRAIN_SEQ), device=dev,
+                           generator=torch.Generator(dev).manual_seed(4),
+                           dtype=torch.int32)
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    p = trainable(init)
+    p, _, met = make_train_step(model, ocfg)(p, opt.adamw_init(p, ocfg),
+                                             {"tokens": tokens,
+                                              "labels": tokens})
+    want = tree_map(lambda t: t.detach(), p)
+    lr = float(met["lr"])
+    del p
+    release_memory()
+    z1 = zero1_shardings(mesh, model)
+    dinit = distribute(init, model.partition_specs(mesh), mesh)
+    del init
+    batch = {k: distribute(tokens, P("data"), mesh)
+             for k in ("tokens", "labels")}
+    for name, K, grads in (("zero1", 1, None),
+                           ("zero2", MESH_TRAIN_MICROBATCH, z1)):
+        t1 = time.monotonic()
+        with use_mesh(mesh):
+            p = trainable(dinit)
+            st = opt.adamw_init(p, ocfg)
+            st = opt.AdamWState(st.step, constrain(st.m, z1),
+                                constrain(st.v, z1))
+            p, st, m = make_train_step(model, ocfg, microbatch=K,
+                                       grad_sharding=grads)(p, st, batch)
+            got = tree_map(full, p)
+        close = params_close_after_adamw(want, got, lr)
+        emit(phase="mesh", model="qwen3-1.7b full width f32",
+             train=name, microbatch=K, S=MESH_TRAIN_SEQ, B=MESH_TRAIN_BATCH,
+             loss=float(full(m["loss"])), loss_unsharded=float(met["loss"]),
+             grad_norm=float(full(m["grad_norm"])),
+             grad_norm_unsharded=float(met["grad_norm"]), **close,
+             seconds=time.monotonic() - t1)
+        if not close["params_ok"]:
+            raise AssertionError(f"{name} step differs from the unsharded "
+                                 f"step")
+        del p, st, got
+        release_memory()
+    emit(phase="mesh", check="training", seconds=time.monotonic() - t0)
+
+
+def mesh_phase(TorchEndpoint, cfg, gcfg, dev, wrappers, smi) -> dict:
+    """The sharded paths on a 1x1 NCCL mesh (world size 1, an in-process
+    HashStore: no TCP), with the dry-run on the host in parallel. Returns
+    the sharded serving run's launches."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    t_phase = time.monotonic()
+    proc, out = start_dryrun()
+    try:
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1, device_id=dev)
+        mesh = make_test_mesh(model=1, data=1, device_type="cuda")
+        launches = mesh_serve(TorchEndpoint, cfg, dev, mesh, wrappers, smi)
+        release_memory()
+        mesh_moe(gcfg, dev, mesh)
+        release_memory()
+        mesh_train(cfg, dev, mesh)
+        release_memory()
+        finish_dryrun(proc, out)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    emit(phase="mesh", step="done", seconds=time.monotonic() - t_phase)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
@@ -2282,6 +2571,15 @@ def main() -> int:
                            "K3": dec.decode_attention_quant,
                            "K4": k4.mlstm_scan, "K5": k5.ssm_scan})
 
+    # -- the mesh: the sharded paths on a 1x1 NCCL mesh, the dry-run on the
+    # host -------------------------------------------------------------------
+    mesh_launches = mesh_phase(TorchEndpoint, cfg, gcfg, dev,
+                               {"K1": fl.flash_attention,
+                                "K2": dec.decode_attention,
+                                "K3": dec.decode_attention_quant,
+                                "K4": k4.mlstm_scan, "K5": k5.ssm_scan},
+                               smi)
+
     # -- the simulator and the batch simulator: host and torch tensor
     # code, no kernel of the port --------------------------------------------
     sim_wrappers = {"K1": fl.flash_attention, "K2": dec.decode_attention,
@@ -2308,7 +2606,8 @@ def main() -> int:
                "llava-next-mistral-7b": l_launches,
                "whisper-large-v3": w_launches,
                "replay": replay_launches,
-               "replay-sharded": replay_sh_launches}
+               "replay-sharded": replay_sh_launches,
+               "mesh": mesh_launches}
     launches = {k: sum(n.get(k, 0) for n in by_path.values())
                 for k in ("K1", "K2", "K3", "K4", "K5")}
 

@@ -22,6 +22,7 @@ from pathlib import Path
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
@@ -141,6 +142,18 @@ def refuse_autograd(what: str, *tensors) -> None:
         raise RuntimeError(
             f"{what}: an input requires grad, and the kernel has no "
             f"backward; run the plain version under autograd")
+
+
+def refuse_dtensor(what: str, *tensors) -> None:
+    """Raise if any of ``tensors`` is a DTensor. The wrappers pass raw
+    pointers to the kernels, and a DTensor's pointer is its local shard's
+    alone; under a mesh the model hands the kernels local shards
+    (``models.transformer.local_call``), never a DTensor, and never falls
+    back to the plain version on the card."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            f"{what}: a DTensor input; call the kernel on its local "
+            f"shards (local_map)")
 
 
 def count_launch(wrapper) -> None:

@@ -56,6 +56,7 @@ def _check(q, k, v) -> None:
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Prefill attention: K1 on a CUDA tensor, the plain version on a CPU
     tensor; raises if autograd would record an input."""
+    _build.refuse_dtensor("flash_attention", q, k, v)
     _build.refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)

@@ -151,6 +151,7 @@ def mlstm_scan(q, k, v, ig, fg, state=None):
     """The mLSTM scan: K4 on a CUDA tensor, the plain version on a CPU
     tensor. Returns (h, (C, n, m)). Raises if autograd would record an
     input."""
+    _build.refuse_dtensor("mlstm_scan", q, k, v, ig, fg, *(state or ()))
     _build.refuse_autograd("mlstm_scan", q, k, v, ig, fg, *(state or ()))
     if q.device.type == "cpu":
         return mlstm_scan_plain(q, k, v, ig, fg, state)

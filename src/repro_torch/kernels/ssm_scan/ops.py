@@ -137,6 +137,7 @@ def ssm_scan(x, dt, a_log, b, c, d_skip, state=None):
     """The selective scan: K5 on a CUDA tensor, the plain version on a CPU
     tensor. Returns (y, final state). Raises if autograd would record an
     input."""
+    _build.refuse_dtensor("ssm_scan", x, dt, a_log, b, c, d_skip, state)
     _build.refuse_autograd("ssm_scan", x, dt, a_log, b, c, d_skip, state)
     if x.device.type == "cpu":
         return ssm_scan_plain(x, dt, a_log, b, c, d_skip, state)

@@ -2,10 +2,13 @@
 the training loss and activation recomputation.
 
 A model is described by a *parameter table*: a nested dict of ``ParamDef``
-(the layout of ``repro.models.common``). ``init_params`` draws the
-parameters from a ``torch.Generator`` on the target device, with the
-reference's distributions; the numbers differ from ``jax.random``'s, so
-parity runs load the reference's own weights through ``repro_torch.bridge``.
+(the layout of ``repro.models.common``). One table drives three views:
+  - ``abstract_params``  -> meta tensors (dry-run, no allocation)
+  - ``init_params``      -> parameters drawn from a ``torch.Generator`` on
+    the target device, with the reference's distributions; the numbers
+    differ from ``jax.random``'s, so parity runs load the reference's own
+    weights through ``repro_torch.bridge``
+  - ``partition_specs``  -> ``P`` tree, divisibility-sanitized
 """
 from __future__ import annotations
 
@@ -15,12 +18,15 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.utils.shardctx import (P, _sanitize, mesh_axes,  # noqa: F401
+                                        placements)
+
 
 @dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    # logical spec entries of the reference (mesh-axis name or None per
-    # dim); kept so the tables read the same, unused on one device
+    # logical spec entries: a mesh-axis name (or tuple of names) or None
+    # per dim
     pspec: Tuple[Any, ...]
     init: str = "normal"  # normal | zeros | ones
     scale: Optional[float] = None  # None -> 1/sqrt(fan_in)
@@ -68,6 +74,45 @@ def init_params(table, config, generator: torch.Generator,
                  * scale).to(dt)
         _set(out, path, x)
     return out
+
+
+def abstract_params(table, config) -> Dict:
+    """Meta tensors of the parameters' shapes and dtypes: no storage."""
+    out: Dict = {}
+    for path, d in _leaves(table):
+        _set(out, path, torch.empty(
+            d.shape, dtype=getattr(torch, d.dtype or config.param_dtype),
+            device="meta"))
+    return out
+
+
+def sanitize_spec(d: ParamDef, mesh) -> P:
+    """Drop sharding on dims not divisible by the mesh axis size, as the
+    reference does (jax rejects uneven shardings; DTensor would shard
+    them unevenly)."""
+    return _sanitize(d.shape, d.pspec, mesh)
+
+
+def partition_specs(table, mesh) -> Dict:
+    out: Dict = {}
+    for path, d in _leaves(table):
+        _set(out, path, sanitize_spec(d, mesh))
+    return out
+
+
+def batch_axes(mesh) -> Any:
+    """Mesh axes used for the batch dim: ('pod','data') when multi-pod."""
+    return ("pod", "data") if "pod" in mesh_axes(mesh) else ("data",)
+
+
+def batch_pspec(mesh, size: int, *trailing) -> P:
+    axes = batch_axes(mesh)
+    sizes = mesh_axes(mesh)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    first = axes if size % n == 0 else None
+    return P(first, *trailing)
 
 
 def tree_map(fn, tree):
@@ -145,11 +190,13 @@ def rope(x, positions, theta: float, partial: bool = False):
 def cross_entropy(logits, labels, ignore: int = -1):
     """Mean CE over non-ignored positions, in float32, as
     ``repro.models.common.cross_entropy``. logits (..., V), labels (...)."""
-    logits = logits.float()
+    # as rows (N, V): DTensor gathers from vocab-sharded 2-D rows only
+    logits = logits.float().reshape(-1, logits.shape[-1])
+    labels = labels.reshape(-1)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long().clamp_min(0)[..., None])
+    ll = torch.gather(logits, -1, labels.long().clamp_min(0)[:, None])
     mask = (labels != ignore).float()
-    loss = (lse - ll[..., 0]) * mask
+    loss = (lse[:, None] - ll)[:, 0] * mask
     return loss.sum() / torch.clamp_min(mask.sum(), 1.0)
 
 

@@ -1,7 +1,8 @@
 """Model API over the ported families (port of ``repro.models.model``).
 
 ``build_model(cfg)`` returns a ``Model`` exposing:
-  - ``init_params(generator, device)``           (parameters on a device)
+  - parameter views (``abstract_params``: meta tensors;
+    ``init_params(generator, device)``; ``partition_specs(mesh)``)
   - ``loss_fn(params, batch)``                   (training)
   - ``prefill_fn(params, batch)``                (prompt -> cache)
   - ``decode_fn(params, cache, tokens, pos)``    (serve_step)
@@ -67,9 +68,15 @@ class Model:
         return self.cfg.family == "audio"
 
     # -- parameters ------------------------------------------------------
+    def abstract_params(self) -> Dict:
+        return common.abstract_params(self.param_table, self.cfg)
+
     def init_params(self, generator: torch.Generator, device) -> Dict:
         return common.init_params(self.param_table, self.cfg, generator,
                                   device)
+
+    def partition_specs(self, mesh) -> Dict:
+        return common.partition_specs(self.param_table, mesh)
 
     # -- steps ------------------------------------------------------------
     def loss_fn(self, params, batch):

@@ -8,7 +8,9 @@ the model passes its ops' ``ssm_scan``, which is the SSM scan kernel (K5,
 forward-only). The reference's two-level chunked time scan exists for
 reverse-mode memory and computes the same sum: here the scan runs whole,
 and in chunks recomputed in the backward while autograd records
-(``common.time_chunks``).
+(``common.time_chunks``). Under a mesh the scan runs on the local
+shards (``shardctx.local_call``): the batch over the data axes, the heads
+over ``model`` where they divide.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import ParamDef, time_chunks
+from repro_torch.utils.shardctx import (P, Reduced, local_call, local_layout,
+                                        maybe_shard, summed_over)
 
 
 def ssm_param_table(cfg: ModelConfig, L: int) -> Dict[str, ParamDef]:
@@ -73,13 +77,22 @@ def ssm_apply_seq(cfg: ModelConfig, p, x, state, conv_state,
     Hs, Ps = cfg.ssm_heads, cfg.ssm_head_dim
     xin = x @ p["in_proj"]
     xc, new_conv = causal_conv(xin, conv_state, p["conv_w"])
-    xc = F.silu(xc).reshape(B, S, Hs, Ps)
+    b, h = local_layout(B, Hs)
+    xc = maybe_shard(F.silu(xc), b, None, h).reshape(B, S, Hs, Ps)
     dt = F.softplus((x @ p["dt_proj"]) + p["dt_bias"]).float()
     Bt = (x @ p["b_proj"]).float()
     Ct = (x @ p["c_proj"]).float()
+    # gradients: the per-head parameters see each data shard's batch, B
+    # and C each model shard's heads (sums over those axes)
+    bc_grad = P(b) if h is None else Reduced({"model": "sum"}, b)
+    specs = (P(b, None, h, None), P(b, None, h), P(h), P(b), P(b), P(h),
+             P(b, h))
+    grads = specs[:2] + (summed_over(b, P(h)), bc_grad, bc_grad,
+                         summed_over(b, P(h)), specs[-1])
     y, state = time_chunks(
-        lambda x_, dt_, b_, c_, st: scan(x_, dt_, p["a_log"], b_, c_,
-                                         p["d_skip"], st),
+        lambda x_, dt_, b_, c_, st: local_call(
+            scan, (x_, dt_, p["a_log"], b_, c_, p["d_skip"], st), specs,
+            (P(b, None, h, None), P(b, h)), grads),
         (xc, dt, Bt, Ct), state)
     y = y.to(x.dtype).reshape(B, S, Hs * Ps)
     return y @ p["out_proj"], state, new_conv

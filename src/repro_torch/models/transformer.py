@@ -47,6 +47,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ParamDef, remat, rms_norm, rope,
                                        unstack)
+from repro_torch.utils.shardctx import (P, batch_axis, home, local_call,
+                                        local_layout, maybe_shard, zeros)
 
 PREFILL_CHUNK = 1024
 
@@ -143,6 +145,10 @@ def _qkv(cfg: ModelConfig, p, xn, positions):
     v = xn @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    # under a mesh the flat head dims go to the local attention layout
+    # first: DTensor splits a sharded dim only where the heads divide
+    b, h = local_layout(B, KV)
+    q, k, v = (maybe_shard(t, b, None, h) for t in (q, k, v))
     q = q.reshape(B, S, H, dh)
     k = k.reshape(B, S, KV, dh)
     v = v.reshape(B, S, KV, dh)
@@ -156,16 +162,71 @@ def _qkv(cfg: ModelConfig, p, xn, positions):
 
 def _mlp(cfg: ModelConfig, p, x):
     h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+    h = maybe_shard(h, batch_axis(), None, "model")
     return h @ p["w2"]
+
+
+# --- under a mesh -------------------------------------------------------------
+#
+# The kernels read raw pointers, so a DTensor never reaches a wrapper: the
+# attention of a block (its cache writes and its BlockOps call) runs on the
+# local shards through ``shard_map_compat`` (torch's ``local_map``), with
+# the batch over the data axes and the heads over ``model`` where the kv
+# heads divide (the query heads of a kv head stay on its shard), and every
+# cache slot on every shard: K2/K3 must not attend over a slice of the
+# cache. The reference's decode input shards slots over ``model``
+# (``launch.specs.cache_shardings``); ``decode_step`` moves the cache to
+# this layout first and returns it so.
+
+
+def cache_layout(cfg: ModelConfig, name: str, shape) -> P:
+    """The local attention layout of a stacked cache leaf (L, B, ...):
+    k/v (L, B, S, KV, dh) and their scales (L, B, S, KV) by batch and kv
+    head, the hybrid block's states by batch."""
+    b, h = local_layout(shape[1], cfg.n_kv_heads)
+    if name in ("k", "v", "k_scale", "v_scale"):
+        return P(None, b, None, h, None)[:len(shape)]
+    return P(None, b)
+
+
+def to_local_layout(cfg: ModelConfig, cache: Dict) -> Dict:
+    """``cache`` with every DTensor leaf in ``cache_layout`` (a no-op for
+    plain tensors and leaves already there)."""
+    return {k: maybe_shard(t, *cache_layout(cfg, k, t.shape))
+            for k, t in cache.items()}
 
 
 def _attn_branch(cfg: ModelConfig, p, xn, layer_cache, pos, mode,
                  ring: bool, ops: BlockOps):
     B, S, _ = xn.shape
+    if mode == "decode":
+        positions = torch.full((1,), pos, dtype=torch.int64,
+                               device=xn.device)
+    else:
+        positions = torch.arange(S, device=xn.device)
+    q, k, v = _qkv(cfg, p, xn, positions)
+    names = [n for n in ("k", "v", "k_scale", "v_scale")
+             if mode != "train" and n in layer_cache]
+    b, h = local_layout(B, cfg.n_kv_heads)
+    qkv = P(b, None, h, None)
+    out = local_call(
+        lambda q, k, v, *c: _attend(cfg, q, k, v, dict(zip(names, c)), pos,
+                                    mode, ring, ops),
+        (q, k, v, *(layer_cache[n] for n in names)),
+        (qkv, qkv, qkv) + tuple(P(b, None, h, None)[:layer_cache[n].ndim]
+                                for n in names), qkv)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    out = maybe_shard(out, batch_axis(), None, "model")
+    return out @ p["wo"]
+
+
+def _attend(cfg: ModelConfig, q, k, v, layer_cache, pos, mode, ring: bool,
+            ops: BlockOps):
+    """A block's attention on (local) tensors: the cache writes and the
+    BlockOps call."""
+    S = q.shape[1]
     window = cfg.sliding_window
     if mode in ("train", "prefill"):
-        positions = torch.arange(S, device=xn.device)
-        q, k, v = _qkv(cfg, p, xn, positions)
         out = ops.prefill(q, k, v, causal=True, window=window)
     if mode == "prefill":
         ck, cv = layer_cache["k"], layer_cache["v"]
@@ -187,9 +248,6 @@ def _attn_branch(cfg: ModelConfig, p, xn, layer_cache, pos, mode,
                 attn.cache_write_full(layer_cache["k_scale"],
                                       layer_cache["v_scale"], sk, sv, 0)
     elif mode == "decode":
-        positions = torch.full((1,), pos, dtype=torch.int64,
-                               device=xn.device)
-        q, k, v = _qkv(cfg, p, xn, positions)
         ck, cv = layer_cache["k"], layer_cache["v"]
         if cfg.kv_quant:
             k, sk = attn.quantize_kv(k)
@@ -214,8 +272,7 @@ def _attn_branch(cfg: ModelConfig, p, xn, layer_cache, pos, mode,
                                    ring=ring)
         else:
             out = ops.decode(q, ck, cv, pos, window=window, ring=ring)
-    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return out @ p["wo"]
+    return out
 
 
 def block_apply(cfg: ModelConfig, p, x, layer_cache, pos, mode,
@@ -226,13 +283,17 @@ def block_apply(cfg: ModelConfig, p, x, layer_cache, pos, mode,
     a hybrid block's SSM and conv states) into ``layer_cache``; ``mode ==
     "train"`` takes no cache and writes nothing, and a hybrid block's SSM
     heads start from zero states."""
+    # a sequence-parallel carry is gathered here, where the products need
+    # every position (GSPMD's gather inside the reference's block)
+    x = maybe_shard(x, batch_axis())
     xn = rms_norm(x, p["ln1"])
     attn_out = _attn_branch(cfg, p, xn, layer_cache, pos, mode, ring, ops)
     if cfg.family == "hybrid":
         if mode == "train":
             st = ssm_mod.ssm_state_shapes(cfg, x.shape[0])
+            b, _ = local_layout(x.shape[0], 1)
             ssm_state, conv_state = (
-                torch.zeros(s, dtype=d, device=x.device)
+                zeros(s, d, home(x), P(b))
                 for s, d in (st["ssm_state"], st["conv_state"]))
         else:
             ssm_state = layer_cache["ssm_state"]
@@ -250,7 +311,7 @@ def block_apply(cfg: ModelConfig, p, x, layer_cache, pos, mode,
     xn2 = rms_norm(x, p["ln2"])
     aux = None
     if cfg.is_moe:
-        ffn_out, aux = moe_mod.moe_apply(cfg, p, xn2)
+        ffn_out, aux = moe_mod.moe_apply_ep(cfg, p, xn2)
     else:
         ffn_out = _mlp(cfg, p, xn2)
     return x + ffn_out, aux
@@ -280,8 +341,10 @@ def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int,
 
 def zero_cache(cfg: ModelConfig, batch: int, cache_len: int, ring: bool,
                device) -> Dict:
+    """Zero cache leaves on ``device``; under a mesh, when ``device`` is a
+    DeviceMesh, DTensors in ``cache_layout``."""
     shapes = cache_shapes(cfg, batch, cache_len, ring)
-    return {k: torch.zeros(s, dtype=d, device=device)
+    return {k: zeros(s, d, device, cache_layout(cfg, k, s))
             for k, (s, d) in shapes.items()}
 
 
@@ -292,16 +355,19 @@ def _layer(tree: Dict, i: int) -> Dict:
 
 
 def _embed(cfg: ModelConfig, params, tokens, patch_embeds=None):
-    x = params["emb"][tokens.long()]
+    # F.embedding, the gather of emb[tokens]: DTensor shards it over a
+    # vocab-sharded table with one all-reduce
+    x = maybe_shard(F.embedding(tokens.long(), params["emb"]), batch_axis())
     if patch_embeds is not None:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
-    return x.to(cfg.compute_dtype)
+    return maybe_shard(x.to(cfg.compute_dtype), batch_axis())
 
 
 def _unembed(cfg: ModelConfig, params, x):
-    x = rms_norm(x, params["final_norm"])
+    x = maybe_shard(rms_norm(x, params["final_norm"]), batch_axis())
     head = params["emb"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.to(x.dtype)
+    logits = x @ head.to(x.dtype)
+    return maybe_shard(logits, batch_axis(), None, "model")
 
 
 def forward(cfg: ModelConfig, params, tokens, patch_embeds=None,
@@ -315,7 +381,11 @@ def forward(cfg: ModelConfig, params, tokens, patch_embeds=None,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def block(p, x):
-        return block_apply(cfg, p, x, None, 0, "train", False, ops)
+        # sequence-parallel carry: the checkpoint saved per layer is
+        # (B, S/model, d) instead of (B, S, d), gathered inside the block
+        x = maybe_shard(x, batch_axis(), "model")
+        x, a = block_apply(cfg, p, x, None, 0, "train", False, ops)
+        return maybe_shard(x, batch_axis(), "model"), a
     for p in unstack(params["layers"], cfg.n_layers):
         x, a = remat(block, p, x)
         if a is not None:
@@ -332,8 +402,9 @@ def prefill(cfg: ModelConfig, params, tokens, patch_embeds=None,
     x = _embed(cfg, params, tokens, patch_embeds)
     B, S, _ = x.shape
     cache_len = cache_len or S
-    cache = zero_cache(cfg, B, cache_len, ring, x.device)
+    cache = zero_cache(cfg, B, cache_len, ring, home(x))
     for i in range(cfg.n_layers):
+        x = maybe_shard(x, batch_axis(), "model")  # sequence-parallel carry
         x, _ = block_apply(cfg, _layer(params["layers"], i), x,
                            _layer(cache, i), 0, "prefill", ring, ops)
     logits = _unembed(cfg, params, x[:, -1:])
@@ -343,9 +414,12 @@ def prefill(cfg: ModelConfig, params, tokens, patch_embeds=None,
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int,
                 ring: bool = False, ops: BlockOps = KERNEL_OPS):
     """One serve step: tokens (B,1) at absolute position ``pos``. Writes
-    the new kv entries into ``cache`` and returns (logits, cache)."""
+    the new kv entries into ``cache`` and returns (logits, cache); under a
+    mesh, a DTensor cache is first moved to ``cache_layout`` and the
+    returned cache is that one."""
     _ported_only(cfg)
     x = _embed(cfg, params, tokens)
+    cache = to_local_layout(cfg, cache)
     for i in range(cfg.n_layers):
         x, _ = block_apply(cfg, _layer(params["layers"], i), x,
                            _layer(cache, i), pos, "decode", ring, ops)

@@ -24,6 +24,12 @@ and the cross k/v (``ck``, ``cv``: ``encoder_len`` slots, written once by
 prefill from the encoder's output), plus their f32 scales under
 ``kv_quant``. Prefill fills a fresh cache in place and ``decode_step``
 writes into the cache it is given, as ``models.transformer`` does.
+
+Under a mesh each encoder and decoder block runs on the local batch shard
+with its weights gathered (``shardctx.batch_local``), the kernels on
+local tensors, and the cache is split by batch over the data axes
+(``decode_step`` moves a cache in the reference's layout there first).
+Embedding, carry and logits keep the reference's constraints.
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import ParamDef, layer_norm, remat, unstack
 from repro_torch.models.transformer import (KERNEL_OPS, PLAIN_OPS, BlockOps,
                                             _layer)
+from repro_torch.utils.shardctx import (P, batch_axis, batch_local, home,
+                                        local_layout, maybe_shard, zeros)
 
 
 def _attn_defs(L, d, H, dh, prefix=""):
@@ -133,13 +141,14 @@ def encode(cfg: ModelConfig, params, frames, ops: BlockOps = KERNEL_OPS):
     """frames: (B, encoder_len, d_model) stub embeddings -> encoder output."""
     x = frames.to(cfg.compute_dtype)
     x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)
+    x = maybe_shard(x, batch_axis())
 
     def block(p, x):
         xn = layer_norm(x, p["ln_w"], p["ln_b"])
         a, _ = _self_mha(cfg, p, xn, causal=False, ops=ops)
         return _mlp(p, x + a)
     for p in unstack(params["enc_layers"], cfg.n_encoder_layers):
-        x = remat(block, p, x)
+        x = remat(batch_local, block, p, (x,), 1)
     return layer_norm(x, params["enc_norm_w"], params["enc_norm_b"])
 
 
@@ -224,16 +233,20 @@ def _dec_block(cfg: ModelConfig, p, x, layer_cache, pos: int, mode: str,
 
 
 def _dec_embed(cfg: ModelConfig, params, tokens, pos: int):
-    x = params["emb"][tokens.long()].to(cfg.compute_dtype)
+    x = F.embedding(tokens.long(), params["emb"]).to(cfg.compute_dtype)
+    x = maybe_shard(x, batch_axis())
     S = tokens.shape[1]
     # dynamic_slice_in_dim clamps the start to max_positions - S
     start = max(0, min(pos, params["dec_pos"].shape[0] - S))
-    return x + params["dec_pos"][start:start + S].to(x.dtype)
+    return maybe_shard(x + params["dec_pos"][start:start + S].to(x.dtype),
+                       batch_axis())
 
 
 def _unembed(params, x):
     x = layer_norm(x, params["dec_norm_w"], params["dec_norm_b"])
-    return x @ params["emb"].T.to(x.dtype)
+    x = maybe_shard(x, batch_axis())
+    return maybe_shard(x @ params["emb"].T.to(x.dtype), batch_axis(), None,
+                       "model")
 
 
 def forward(cfg: ModelConfig, params, tokens, frames,
@@ -248,7 +261,8 @@ def forward(cfg: ModelConfig, params, tokens, frames,
     def block(p, x, enc):
         return _dec_block(cfg, p, x, {"enc": enc}, 0, "train", ops)
     for p in unstack(params["dec_layers"], cfg.n_layers):
-        x = remat(block, p, x, enc)
+        x = maybe_shard(x, batch_axis(), "model")  # sequence-parallel carry
+        x = remat(batch_local, block, p, (x, enc), 1)
     return _unembed(params, x), torch.zeros((), device=x.device)
 
 
@@ -271,8 +285,24 @@ def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int) -> Dict:
 
 def zero_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device) -> Dict:
-    return {k: torch.zeros(s, dtype=d, device=device)
+    """Zero cache leaves on ``device``; under a mesh, when ``device`` is a
+    DeviceMesh, DTensors split by batch (``cache_layout``)."""
+    return {k: zeros(s, d, device, cache_layout(s))
             for k, (s, d) in cache_shapes(cfg, batch, cache_len).items()}
+
+
+def cache_layout(shape) -> P:
+    """Every leaf (L, B, ...) split by batch over the data axes."""
+    return P(None, local_layout(shape[1], 1)[0])
+
+
+def _layer_local(p, x, lc, names, body):
+    """``body(p, x, layer_cache) -> x`` on the local batch shard under a
+    mesh, the layer cache's leaves ``names`` passed as local views so
+    the body's in-place writes land in the cache."""
+    def local(p, x, *leaves):
+        return body(p, x, dict(zip(names, leaves)))
+    return batch_local(local, p, (x, *(lc[n] for n in names)), 1)
 
 
 def prefill(cfg: ModelConfig, params, tokens, frames,
@@ -282,11 +312,11 @@ def prefill(cfg: ModelConfig, params, tokens, frames,
     serve cache)."""
     enc = encode(cfg, params, frames, ops)
     B, S = tokens.shape
-    cache = zero_cache(cfg, B, cache_len or S, enc.device)
+    cache = zero_cache(cfg, B, cache_len or S, home(enc))
     x = _dec_embed(cfg, params, tokens, 0)
-    for i in range(cfg.n_layers):
-        p = _layer(params["dec_layers"], i)
-        lc = _layer(cache, i)
+
+    def body(p, x, lc):
+        enc = lc.pop("enc")
         ck = _heads(cfg, enc @ p["x_wk"])
         cv = _heads(cfg, enc @ p["x_wv"])
         if cfg.kv_quant:
@@ -296,7 +326,11 @@ def prefill(cfg: ModelConfig, params, tokens, frames,
             lc["cv_scale"].copy_(cvs)
         lc["ck"].copy_(ck)
         lc["cv"].copy_(cv)
-        x = _dec_block(cfg, p, x, lc, 0, "prefill", ops)
+        return _dec_block(cfg, p, x, lc, 0, "prefill", ops)
+    for i in range(cfg.n_layers):
+        lc = dict(_layer(cache, i), enc=enc)
+        x = _layer_local(_layer(params["dec_layers"], i), x, lc,
+                         sorted(lc), body)
     logits = _unembed(params, x[:, -1:])
     return logits[:, 0], cache
 
@@ -306,8 +340,14 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos: int,
     """One serve step: tokens (B, 1) at position ``pos``. Writes the new
     self k/v entries into ``cache`` and returns (logits, cache)."""
     x = _dec_embed(cfg, params, tokens, pos)
+    cache = {k: maybe_shard(t, *cache_layout(t.shape))
+             for k, t in cache.items()}
+
+    def body(p, x, lc):
+        return _dec_block(cfg, p, x, lc, pos, "decode", ops)
     for i in range(cfg.n_layers):
-        x = _dec_block(cfg, _layer(params["dec_layers"], i), x,
-                       _layer(cache, i), pos, "decode", ops)
+        lc = _layer(cache, i)
+        x = _layer_local(_layer(params["dec_layers"], i), x, lc,
+                         sorted(lc), body)
     logits = _unembed(params, x)
     return logits[:, 0], cache

@@ -20,8 +20,10 @@ from dataclasses import dataclass
 from typing import Any, NamedTuple, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.utils.shardctx import constrain
 
 
 @dataclass(frozen=True)
@@ -42,9 +44,9 @@ class AdamWState(NamedTuple):
 
 
 def adamw_init(params, cfg: AdamWConfig) -> AdamWState:
-    """Step 0 and zero float32 moments, on the parameters' device."""
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    """Step 0 and zero float32 moments, on the parameters' device (in
+    their layout, for DTensor parameters)."""
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
     dev = next(tree_leaves(params)).device
     return AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
                       tree_map(zeros, params), tree_map(zeros, params))
@@ -74,12 +76,23 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
     """Returns (params, new_state, metrics), ``params`` and the state's m
     and v updated in place (see the module's docstring). ``grads`` is a
     tree shaped as ``params`` or the list of its leaves in
-    ``tree_leaves`` order. ``shardings``
-    (the reference's ZeRO-1 layouts) needs a device mesh: ROADMAP.md
-    item 18."""
-    if shardings is not None:
-        raise ValueError("adamw_update: shardings need a device mesh, not "
-                         "ported yet (ROADMAP.md section 1, item 18)")
+    ``tree_leaves`` order.
+
+    ``shardings`` (optional tree of ``P``, the ZeRO-1 specs of
+    ``launch.specs.zero1_shardings``) pins the whole elementwise update of
+    DTensor parameters to the sharded layout, so the gathered float32 m
+    and v never exist: the clipped grads, the parameters (a slice, no
+    communication) and m and v are taken to it, and only the updated
+    parameters go back to their tensor-parallel layout (§Perf H6). m and
+    v are updated where they lie when they are in that layout already
+    (``abstract_opt_state``, or a second step); else the state returned
+    holds them in it."""
+    specs = [None] * len(list(tree_leaves(params))) if shardings is None \
+        else list(tree_leaves(shardings))
+
+    def pin(x, spec):
+        return x if spec is None else constrain(x, spec)
+
     gn = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gn + 1e-9), max=1.0)
     step = state.step + 1
@@ -88,14 +101,31 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
     stepf = step.to(torch.float32)
     bc1 = 1 - torch.pow(b1, stepf)
     bc2 = 1 - torch.pow(b2, stepf)
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(state.m), tree_leaves(state.v)):
-        g = g.float() * scale
+    ms = [pin(m, s) for m, s in zip(tree_leaves(state.m), specs)]
+    vs = [pin(v, s) for v, s in zip(tree_leaves(state.v), specs)]
+    for p, g, m, v, s in zip(tree_leaves(params), tree_leaves(grads), ms,
+                             vs, specs):
+        g = pin(g.float() * scale, s)
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * g * g)
         u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        p32 = p.float()
+        p32 = pin(p, s).float()   # refine to the z1 layout: slice, no comm
         u.add_(cfg.weight_decay * p32)
-        p.copy_((p32 - lr * u).to(p.dtype))
+        new = (p32 - lr * u).to(p.dtype)
+        if isinstance(new, DTensor):
+            # back to the tensor-parallel layout: the one all-gather
+            new = new.redistribute(p.device_mesh, p.placements)
+        p.copy_(new)
+    if shardings is not None:
+        state = AdamWState(state.step, _rebuild(state.m, iter(ms)),
+                           _rebuild(state.v, iter(vs)))
     return params, AdamWState(step, state.m, state.v), \
         {"lr": lr, "grad_norm": gn}
+
+
+def _rebuild(tree, leaves):
+    """``tree``'s structure with the next of ``leaves`` at each leaf, in
+    ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], leaves) for k in sorted(tree)}
+    return next(leaves)

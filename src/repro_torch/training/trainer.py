@@ -22,6 +22,7 @@ from repro_torch.runtime.device import resolve_device
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.optimizer import (AdamWConfig, AdamWState,
                                             adamw_init, adamw_update)
+from repro_torch.utils import shardctx
 
 
 def trainable(params):
@@ -38,13 +39,21 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
 
     microbatch=K > 1 splits the batch into K contiguous chunks along dim
     0, accumulates their grads in float32 and divides by K; loss and
-    metrics are the means over the chunks. ``grad_sharding`` needs a
-    device mesh: ROADMAP.md item 18."""
-    if grad_sharding is not None:
-        raise ValueError("make_train_step: grad_sharding needs a device "
-                         "mesh, not ported yet (ROADMAP.md section 1, "
-                         "item 18)")
+    metrics are the means over the chunks. Under a mesh each chunk is
+    sharded over the data axes again. ``grad_sharding`` (a tree of ``P``
+    matching params, the ZeRO-1 specs of ``launch.specs.zero1_shardings``)
+    pins each chunk's grads and the float32 accumulator to that layout:
+    the grads' all-reduce over the data axes becomes a reduce-scatter and
+    the accumulator is stored sharded over them (ZeRO-2, §Perf H4); it is
+    also passed on to ``adamw_update``. Without DTensor parameters it
+    changes nothing."""
     K = microbatch
+    specs = None if grad_sharding is None else list(tree_leaves(grad_sharding))
+
+    def constrain(gs):
+        if specs is None:
+            return list(gs)
+        return [shardctx.constrain(g, s) for g, s in zip(gs, specs)]
 
     def grads_of(params, leaves, batch):
         loss, metrics = model.loss_fn(params, batch)
@@ -62,14 +71,18 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
                 raise ValueError(f"make_train_step: batch {B} does not "
                                  f"split into {K} microbatches")
             n = B // K
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in leaves]
+            grads = constrain(torch.zeros_like(p, dtype=torch.float32)
+                              for p in leaves)
             loss = torch.zeros((), dtype=torch.float32,
                                device=leaves[0].device)
             ms = []
             for i in range(K):
-                chunk = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                chunk = {k: shardctx.maybe_shard(v[i * n:(i + 1) * n],
+                                                 shardctx.batch_axis())
+                         for k, v in batch.items()}
                 l_i, m_i, g_i = grads_of(params, leaves, chunk)
+                # pin the chunk grads to the accumulator's (ZeRO) layout
+                g_i = constrain(g_i)
                 with torch.no_grad():
                     for a, g in zip(grads, g_i):
                         a.add_(g.float())
@@ -84,7 +97,7 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
                        for k in ms[0]}
         # grads: a list in tree_leaves(params) order
         params, opt_state, opt_metrics = adamw_update(
-            list(grads), opt_state, params, opt_cfg)
+            list(grads), opt_state, params, opt_cfg, shardings=grad_sharding)
         return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
     return train_step
 

@@ -50,7 +50,26 @@ def test_scan_covers_the_package():
             "datapath/fabric.py", "server/shard.py",
             "workloads/scenarios.py", "workloads/azure_loader.py",
             "workloads/costmodel.py", "analysis/flops.py",
-            "replay.py"} <= rel
+            "replay.py", "utils/shardctx.py", "launch/mesh.py",
+            "launch/specs.py", "launch/dryrun.py", "analysis/hlo.py"} <= rel
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Each module of ``src/repro`` has its counterpart at the same path
+    in the port, but a Pallas kernel (``kernels/<k>/kernel.py``), whose
+    counterpart is ``csrc/<k>.cu``, and its oracle (``ref.py``), whose
+    counterpart is the plain version in ``kernels/<k>/ops.py``."""
+    missing = []
+    for path in sorted(REF.rglob("*.py")):
+        rel = path.relative_to(REF)
+        if rel.parts[0] == "kernels" and rel.name in ("kernel.py", "ref.py"):
+            port = PORT / "csrc" / f"{rel.parts[1]}.cu" \
+                if rel.name == "kernel.py" else PORT / rel.parent / "ops.py"
+        else:
+            port = PORT / rel
+        if not port.exists():
+            missing.append(str(rel))
+    assert not missing, missing
 
 
 @pytest.mark.parametrize("path", _scanned_files(),

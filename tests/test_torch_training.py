@@ -289,15 +289,6 @@ def test_adamw_update_matches_reference(dtype):
         assert (diff[~big] <= cfg.lr).all()
 
 
-def test_optimizer_rejects_shardings():
-    p = {"w": torch.zeros(2)}
-    cfg = AdamWConfig()
-    with pytest.raises(ValueError, match="item 18"):
-        opt.adamw_update(p, opt.adamw_init(p, cfg), p, cfg, shardings={})
-    with pytest.raises(ValueError, match="item 18"):
-        make_train_step(None, cfg, grad_sharding={})
-
-
 # --- the train step -----------------------------------------------------------
 
 def test_microbatch_matches_full_batch():
