@@ -83,6 +83,23 @@ exits non-zero:
                seconds and upload rate, and per arch the cost model's
                warm_time and cold_init at the served shape beside the
                measured execute() and upload + compile seconds.
+     examples — the port's examples: ``python -m
+               repro_torch.examples.memory_policies`` and ``...quickstart``
+               as subprocesses on the card, each of which must print its
+               OK line; then ``serve_trace``'s comparison: its own trace
+               (``make_trace(30, 4.0, 0)``, 30 requests in 7.7 s) under
+               fcfs, then mqfq-sticky (d 2), over five full-width
+               endpoints (qwen3-1.7b, granite-moe-3b-a800m, xlstm-350m at
+               its depth cut, hymba-1.5b, llava-next-mistral-7b at
+               serve_seq 4096), compiled and evicted before the trace,
+               every endpoint evicted before each arm, at a capacity of
+               the two largest endpoints' weights. Each arm: 30 of 30
+               completed without failure, an eviction, K1, K2, K4 and K5
+               launched exactly as the completed requests imply; start
+               types, latency by start type, per-arch mean latency and
+               the inter-function variance, uploads, evictions, wall
+               seconds. Every request's greedy tokens must be equal in
+               both arms.
   7. train   — the training path (``repro_torch.training``), which runs
                the plain versions under autograd and no kernel:
                full-width qwen3-1.7b in bf16 at train_4k's sequence
@@ -1386,6 +1403,166 @@ def replay_phase(TorchEndpoint, get_config, xcfg, dev, wrappers,
     return mono_launches, sh_launches, upload_bw
 
 
+# --- phase 6b: the examples ---------------------------------------------------
+
+# examples/serve_trace.py's own trace (make_trace(30, 4.0, 0): 30 requests
+# in 7.7 s, qwen 15, granite 7, llava 3, xlstm 3, hymba 2) under fcfs, then
+# mqfq-sticky (T 10, alpha 2), d 2, over five full-width endpoints in
+# ARCHS' order; the capacity is the two largest endpoints' weights (llava
+# and granite, 21.2 GB): the reference's rule, three of the largest, would
+# hold all five at full width (28.4 GB) and never swap
+EXAMPLES_TRACE = dict(requests=30, rps=4.0, seed=0)
+EXAMPLE_MODULES = ("memory_policies", "quickstart")
+EXAMPLE_TIMEOUT_S = 300
+
+
+def start_example(module):
+    """``python -m repro_torch.examples.<module>`` in a subprocess, from
+    the checkout, on the card."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{module}"], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_example(module, proc, t0) -> None:
+    """The subprocess must exit 0 and print ``<module>: OK`` last."""
+    try:
+        out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    lines = out.strip().splitlines()
+    last = lines[-1] if lines else ""
+    emit(phase="examples", example=module, rc=proc.returncode,
+         last_line=last, lines=len(lines), seconds=time.monotonic() - t0)
+    if proc.returncode != 0 or not last.startswith(f"{module}: OK"):
+        raise AssertionError(f"examples: {module} exited {proc.returncode}, "
+                             f"last line {last!r}; stderr: {err[-2000:]}")
+
+
+def examples_arm(st, policy, eps, cfgs, logs, trace, cap, wrappers):
+    """One arm of serve_trace: every endpoint evicted, then ``trace``
+    under ``policy``, each kernel's count zeroed just before and read
+    just after. Checks every request completed without failure, an
+    eviction, and the launches that the completed requests and any
+    warm-ups imply. Returns (summary, launches, {(arch, seed): tokens})."""
+    from repro_torch.server import nearest_rank
+    for ep in eps.values():
+        ep.evict()
+    marks = {f: len(logs[f]) for f in eps}
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.monotonic()
+    ref, res = st.run_policy(policy, eps, trace, capacity_bytes=cap)
+    wall = time.monotonic() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    new = {f: logs[f][marks[f]:] for f in eps}
+    compiles = {f: sum(k == "compile" for k, _ in new[f]) for f in eps}
+    served = {f: sum(i.fn_id == f for i in res.invocations) for f in eps}
+    expected = replay_expected_launches(eps, cfgs, served, compiles)
+    by_start = {}
+    for inv in sorted(res.invocations, key=lambda i: i.latency):
+        by_start.setdefault(inv.start_type, []).append(inv.latency)
+    summary = dict(
+        policy=policy, requests=len(trace), completed=ref["completed"],
+        mean_s=ref["mean_s"], max_s=ref["max_s"],
+        start_types=res.start_type_counts(),
+        latency_by_start={k: dict(n=len(v), p50_s=nearest_rank(v, 0.5),
+                                  max_s=v[-1])
+                          for k, v in sorted(by_start.items())},
+        per_arch_mean_s=res.per_fn_mean(),
+        inter_fn_variance=res.inter_fn_variance(),
+        served=served, compiles=compiles,
+        uploads={f: sum(k == "upload" for k, _ in new[f]) for f in eps},
+        evictions=ref["evictions"], wall_s=wall, launches=launches,
+        expected_launches=expected)
+    emit(phase="examples", run="serve_trace", **summary)
+    if not ref["completed"] == len(res.invocations) == len(trace):
+        raise AssertionError(f"serve_trace {policy}: {ref['completed']} of "
+                             f"{len(trace)} completed")
+    if any(inv.failed or not inv.done for inv in res.invocations):
+        raise AssertionError(f"serve_trace {policy}: an invocation failed")
+    if ref["evictions"] < 1:
+        raise AssertionError(f"serve_trace {policy}: no eviction at "
+                             f"{cap} bytes")
+    if launches != expected or not all(
+            launches[k] for k in ("K1", "K2", "K4", "K5")):
+        raise AssertionError(f"serve_trace {policy}: launches {launches}, "
+                             f"expected {expected}")
+    return summary, launches, st.tokens_of(res)
+
+
+def examples_phase(TorchEndpoint, get_config, xcfg, dev, wrappers) -> dict:
+    """The port's examples: ``memory_policies`` and ``quickstart`` as
+    subprocesses (each must print its OK line), then ``serve_trace``'s
+    fcfs against mqfq-sticky over five full-width endpoints, in this
+    process. Frees the endpoints; returns each arm's launches."""
+    from repro_torch.examples import serve_trace as st
+    t_phase = time.monotonic()
+    procs = {m: start_example(m) for m in EXAMPLE_MODULES}
+    try:
+        return examples_serve_trace(st, TorchEndpoint, get_config, xcfg,
+                                    dev, wrappers, procs, t_phase)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+
+
+def examples_serve_trace(st, TorchEndpoint, get_config, xcfg, dev,
+                         wrappers, procs, t_phase) -> dict:
+    """serve_trace's two arms over five full-width endpoints, with the
+    example subprocesses ``procs`` finished before the first arm."""
+    t0 = time.monotonic()
+    cfgs = {a: xcfg if a == "xlstm-350m" else get_config(a)
+            for a in st.ARCHS}
+    eps = {a: TorchEndpoint(
+        a, cfgs[a], seed=i,
+        serve_seq=LLAVA_SEQ if a == "llava-next-mistral-7b" else SERVE_SEQ,
+        serve_batch=SERVE_BATCH, decode_steps=DECODE_STEPS, device=dev)
+        for i, a in enumerate(st.ARCHS)}
+    logs = {a: [] for a in eps}
+    for a, ep in eps.items():
+        time_endpoint(ep, logs[a])
+    st.keep_tokens(eps)
+    # serve_trace's main: compile every endpoint once, then evict it
+    compile_s = {}
+    for a, ep in eps.items():
+        compile_s[a] = ep.compile()
+        ep.evict()
+    weights = {a: ep.weight_bytes for a, ep in eps.items()}
+    cap = sum(sorted(weights.values())[-2:])
+    trace = st.make_trace(**EXAMPLES_TRACE)
+    emit(phase="examples", step="endpoints", weight_bytes=weights,
+         pinned_weight_bytes=sum(weights.values()),
+         host_allocator_pinned_bytes=pinned_host_bytes(),
+         capacity_bytes=cap, compile_s=compile_s, trace=EXAMPLES_TRACE,
+         trace_span_s=trace[-1][0],
+         trace_arrivals=dict(collections.Counter(f for _, f, _ in trace)),
+         seconds=time.monotonic() - t0)
+    for m, proc in procs.items():
+        finish_example(m, proc, t_phase)
+    launches, tokens = {}, {}
+    for policy in ("fcfs", "mqfq-sticky"):
+        _, launches[policy], tokens[policy] = examples_arm(
+            st, policy, eps, cfgs, logs, trace, cap, wrappers)
+    a, b = tokens["fcfs"], tokens["mqfq-sticky"]
+    differ = sorted(k for k in a if k not in b
+                    or not np.array_equal(a[k], b[k]))
+    emit(phase="examples", check="tokens equal across the arms",
+         requests=len(a), differ=[list(k) for k in differ])
+    if len(a) != len(trace) or a.keys() != b.keys() or differ:
+        raise AssertionError(f"serve_trace: tokens differ between the arms "
+                             f"for {differ} ({len(a)}, {len(b)} requests)")
+    emit(phase="examples", step="done", seconds=time.monotonic() - t_phase)
+    del eps
+    release_memory()
+    return launches
+
+
 # --- phase 7: training --------------------------------------------------------
 
 def train_steps(tr, data, steps):
@@ -2565,6 +2742,13 @@ def main() -> int:
         {"K1": fl.flash_attention, "K2": dec.decode_attention,
          "K3": dec.decode_attention_quant, "K4": k4.mlstm_scan,
          "K5": k5.ssm_scan}, qwen_rate)
+    # -- the examples: memory_policies and quickstart, then serve_trace's
+    # fcfs against mqfq-sticky over five full-width endpoints ---------------
+    ex_launches = examples_phase(
+        TorchEndpoint, get_config, xcfg, dev,
+        {"K1": fl.flash_attention, "K2": dec.decode_attention,
+         "K3": dec.decode_attention_quant, "K4": k4.mlstm_scan,
+         "K5": k5.ssm_scan})
     # -- the training path: plain versions under autograd, no kernel ---------
     train_phase(cfg, dev, {"K1": fl.flash_attention,
                            "K2": dec.decode_attention,
@@ -2607,6 +2791,8 @@ def main() -> int:
                "whisper-large-v3": w_launches,
                "replay": replay_launches,
                "replay-sharded": replay_sh_launches,
+               "examples-fcfs": ex_launches["fcfs"],
+               "examples-mqfq-sticky": ex_launches["mqfq-sticky"],
                "mesh": mesh_launches}
     launches = {k: sum(n.get(k, 0) for n in by_path.values())
                 for k in ("K1", "K2", "K3", "K4", "K5")}

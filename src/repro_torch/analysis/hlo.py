@@ -3,11 +3,13 @@
 Torch has no HLO. The reference parses post-SPMD HLO; the port records
 the collectives a step issues while it runs (``CollectiveRecorder``, a
 ``CommDebugMode`` that also keeps each collective's local operand and
-result bytes, fake tensors included), and ``collective_bytes(record,
-scan_trips)`` sums them by kind with the reference's convention. The
-reference multiplies ops inside a while (scan) body by its trip count,
-because XLA lists the body once; the port's eager layer loop issues each
-layer's collectives itself, so ``scan_trips`` stays 1 on its own path.
+result bytes, fake tensors included; the dry-run's ``StepTracker`` keeps
+the same entries, ``is_collective`` and ``collective_entry``), and
+``collective_bytes(record, scan_trips)`` sums them by kind with the
+reference's convention. The reference multiplies ops inside a while
+(scan) body by its trip count, because XLA lists the body once; the
+port's eager layer loop issues each layer's collectives itself, so
+``scan_trips`` stays 1 on its own path.
 
 Byte convention (wire traffic per device, ring algorithms):
   all-reduce:          2x operand bytes x (n-1)/n  ~ 2x operand
@@ -20,6 +22,7 @@ slightly conservative.
 """
 from __future__ import annotations
 
+import functools
 import re
 from collections import defaultdict
 from dataclasses import dataclass, field
@@ -90,6 +93,20 @@ def _nbytes(x) -> int:
     return 0
 
 
+def is_collective(func) -> bool:
+    """Whether the op ``func`` is a collective ``CommDebugMode`` counts."""
+    if isinstance(func, torch._ops.HigherOrderOperator):
+        return False
+    packet = func._overloadpacket
+    return packet in _collective_ops() or packet in _c10d_ops()
+
+
+def collective_entry(func, args, out) -> Tuple[str, int, int]:
+    """One ``CollectiveRecorder.record`` entry: (kind, operand bytes,
+    result bytes), local to one device."""
+    return (_kind(func), _nbytes(args[0] if args else None), _nbytes(out))
+
+
 class CollectiveRecorder(CommDebugMode):
     """``CommDebugMode`` that keeps ``record``: one (kind, operand bytes,
     result bytes) per collective, local to one device, in issue order."""
@@ -100,15 +117,14 @@ class CollectiveRecorder(CommDebugMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = super().__torch_dispatch__(func, types, args, kwargs)
-        if out is NotImplemented or isinstance(
-                func, torch._ops.HigherOrderOperator):
-            return out
-        packet = func._overloadpacket
-        if packet in self.comm_registry or packet in _c10d_ops():
-            self.record.append((_kind(func), _nbytes(args[0] if args
-                                                     else None),
-                                _nbytes(out)))
+        if out is not NotImplemented and is_collective(func):
+            self.record.append(collective_entry(func, args, out))
         return out
+
+
+@functools.lru_cache(maxsize=None)
+def _collective_ops():
+    return frozenset(CommDebugMode().comm_registry)
 
 
 def _c10d_ops():

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.utils.time_loops import steps
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256, 512)   # the kernel's instantiations
@@ -50,7 +51,7 @@ def mlstm_scan_plain(q, k, v, ig, fg, state=None):
         _empty_state(B, H, dh, q.device)
     logf = F.logsigmoid(fg)
     h = torch.empty_like(q)
-    for t in range(S):
+    for t in steps(S):
         q_t, k_t, v_t = q[:, t], k[:, t], v[:, t]          # (B, H, dh)
         m_new = torch.maximum(logf[:, t] + m, ig[:, t])
         i_p = torch.exp(ig[:, t] - m_new)
@@ -85,14 +86,14 @@ def mlstm_scan_chunked_plain(q, k, v, ig, fg, state=None, chunk=CHUNK):
     logf = F.logsigmoid(fg)
     ms = torch.empty_like(ig)
     mt = m
-    for t in range(S):
+    for t in steps(S):
         mt = torch.maximum(logf[:, t] + mt, ig[:, t])
         ms[:, t] = mt
     bhs = lambda a: a.permute(0, 2, 1)            # (B, S', H) -> (B, H, S')
     bhsd = lambda a: a.permute(0, 2, 1, 3)        # -> (B, H, S', dh)
     h = torch.empty_like(q)
-    for t0 in range(0, S, chunk):
-        sl = slice(t0, min(S, t0 + chunk))
+    for i in steps(-(-S // chunk)):
+        sl = slice(i * chunk, min(S, (i + 1) * chunk))
         Fc = torch.cumsum(bhs(logf[:, sl]), -1)
         mc, igc = bhs(ms[:, sl]), bhs(ig[:, sl])
         Q, K, V = bhsd(q[:, sl]), bhsd(k[:, sl]), bhsd(v[:, sl])

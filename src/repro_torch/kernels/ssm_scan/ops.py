@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.models.ssm import _ssm_step
+from repro_torch.utils.time_loops import steps
 
 STATE_SIZES = (8, 16)       # N, the kernel's instantiations
 HEAD_DIMS = (16, 32, 48, 64)   # P: a multiple of 16 up to 64
@@ -43,7 +44,7 @@ def ssm_scan_plain(x, dt, a_log, b, c, d_skip, state=None):
     A = -torch.exp(a_log.float())
     xf = x.float()
     y = torch.empty(B, S, Hs, P, device=x.device)
-    for t in range(S):
+    for t in steps(S):
         state, y[:, t] = _ssm_step(state, (xf[:, t], dt[:, t], b[:, t],
                                            c[:, t]), A)
     y = y + d_skip.float()[None, None, :, None] * xf
@@ -68,8 +69,8 @@ def ssm_scan_chunked_plain(x, dt, a_log, b, c, d_skip, state=None,
     A = -torch.exp(a_log.float())
     xf = x.float()
     y = torch.empty(B, S, Hs, P, device=x.device)
-    for t0 in range(0, S, chunk):
-        sl = slice(t0, min(S, t0 + chunk))
+    for i in steps(-(-S // chunk)):
+        sl = slice(i * chunk, min(S, (i + 1) * chunk))
         dtc = dt[:, sl].permute(0, 2, 1)                    # (B, Hs, L)
         cum = torch.cumsum(dtc * A[:, None], -1)
         L = cum.shape[-1]

@@ -8,31 +8,48 @@ torch's ``fake`` process-group backend: one host process plays rank 0 of
 the world, every collective returns at once, and the arguments are
 DTensors of fake tensors (``launch.specs.build_lowering``), so no device
 memory is touched and the kernels' plain versions run on the host. The
-steps run eagerly: a ``CollectiveRecorder`` keeps each collective a step
-issues (``analysis.hlo``) and torch's ``MemTracker`` the per-device
-peak. MUST be the process entry (it starts the process group itself):
+steps run eagerly, a prefill or decode step without autograd: a
+``StepTracker`` keeps each collective a step issues (``analysis.hlo``)
+and the per-device peak. The time loops of the recurrent archs run
+their first and last steps only (``utils.time_loops``), which leaves the
+record as the full loops make it. MUST be the process entry (it starts
+the process group itself):
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all
 """
 import argparse
+import contextlib
+import functools
 import json
 import os
 import time
 import traceback
+import weakref
 
 import torch
 import torch.distributed as dist
-from torch.distributed._tools.mem_tracker import MemTracker
+from torch._subclasses.fake_tensor import FakeTensorMode
 from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import _sharding_prop
 from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.analysis.flops import roofline_terms, step_cost
-from repro_torch.analysis.hlo import CollectiveRecorder, collective_bytes
+from repro_torch.analysis.hlo import (collective_bytes, collective_entry,
+                                      is_collective)
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import build_lowering, scan_trip_counts
 from repro_torch.shapes import SHAPE_NAMES, get_shape
 from repro_torch.utils.shardctx import use_mesh
+from repro_torch.utils.time_loops import stand_in_time_loops
+
+try:
+    from torch._guards import active_fake_mode
+except ImportError:     # an older torch: the innermost fake mode
+    from torch._guards import detect_fake_mode as active_fake_mode
 
 
 def fake_world(size: int) -> None:
@@ -87,25 +104,100 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, outdir: str,
     return rec
 
 
+class StepTracker(TorchDispatchMode):
+    """What the dry-run keeps of a step, from one dispatch mode over
+    every op on a local tensor: the collectives it issues (``record``, as
+    ``analysis.hlo.CollectiveRecorder`` keeps them) and, per device, the
+    most bytes that live storages held at once (``peak``), as torch's
+    ``MemTracker`` counts them on a CPU device: a storage counts its bytes
+    from the op that made it (or ``track``) until it is freed. The two
+    trackers as separate modes took most of a step's host time; this one
+    keeps their numbers (tests/test_torch_dryrun.py holds it to them) at
+    a fraction of that."""
+
+    def __init__(self, fake_mode):
+        super().__init__()
+        self.record = []
+        self.live, self.peak = {}, {}
+        self._fake_mode = fake_mode
+        self._storages = WeakIdKeyDictionary()
+
+    def _free(self, device, nbytes, _ref) -> None:
+        self.live[device] -= nbytes
+
+    def track(self, *tensors) -> None:
+        for t in tensors:
+            st = t.untyped_storage()
+            if st in self._storages:
+                continue
+            dev, nbytes = t.device.type, st.nbytes()
+            self._storages[st] = weakref.ref(
+                st, functools.partial(self._free, dev, nbytes))
+            live = self.live[dev] = self.live.get(dev, 0) + nbytes
+            if live > self.peak.get(dev, 0):
+                self.peak[dev] = live
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        # DTensor first desugars an op into ops on its local tensors
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if func is torch.ops._c10d_functional.wait_tensor.default:
+            # its fake form makes a new tensor where the eager op returns
+            # its input (MemTracker does the same)
+            out = args[0]
+        else:
+            out = func(*args, **(kwargs or {}))
+        if is_collective(func):
+            self.record.append(collective_entry(func, args, out))
+        # ops of another fake mode (DTensor's propagation) make no memory
+        if active_fake_mode() is self._fake_mode:
+            self.track(*(t for t in tree_leaves(out)
+                         if isinstance(t, torch.Tensor)))
+        return out
+
+
+@contextlib.contextmanager
+def _propagation_untracked():
+    """On a cache miss DTensor's sharding propagation makes fake tensors
+    of an op's global shapes to find its output's metadata, under the
+    fake mode it detects. Under the step's own fake mode the tracker
+    would count them as the step's memory, and a record would depend on
+    what ran before it in the process (the first step's backward peak
+    came out 33% high at reduced hymba-1.5b, train_4k). Give the
+    propagation a fake mode of its own, which the tracker skips."""
+    own = FakeTensorMode(allow_non_fake_inputs=True)
+    detect = _sharding_prop.detect_fake_mode
+    _sharding_prop.detect_fake_mode = lambda: own
+    try:
+        yield
+    finally:
+        _sharding_prop.detect_fake_mode = detect
+
+
 def record(arch: str, shape_name: str, mesh, mesh_name: str,
-           **build_kw) -> dict:
+           stand_in: bool = True, **build_kw) -> dict:
     """One (arch x shape) step on ``mesh`` (a DeviceMesh over the fake
-    process group): its record, with the reference's keys."""
+    process group): its record, with the reference's keys. With
+    ``stand_in`` the time loops run their first and last steps only
+    (``utils.time_loops``), which leaves the record as it is."""
     chips = mesh.size()
     t0 = time.time()
     step, args, _, meta = build_lowering(arch, shape_name, mesh, **build_kw)
     cfg = meta["cfg"]
-    recorder = CollectiveRecorder()
-    mt = MemTracker()
+    tracker = StepTracker(meta["fake_mode"])
     arg_locals = [_local(t) for t in _flat(args)]
-    mt.track_external(*arg_locals)
-    with meta["fake_mode"], use_mesh(mesh), recorder, mt:
+    tracker.track(*arg_locals)
+    # only a train step differentiates: a prefill or decode step runs
+    # without autograd, as serving does (under no_grad, not inference_mode:
+    # a DTensor view cannot be an inference tensor)
+    loops = stand_in_time_loops() if stand_in else contextlib.nullcontext()
+    with meta["fake_mode"], use_mesh(mesh), _propagation_untracked(), \
+            tracker, torch.set_grad_enabled(meta["kind"] == "train"), loops:
         out = step(*args)
-    peak = mt.get_tracker_snapshot("peak")
-    peak_bytes = max((d["Total"] for d in peak.values()), default=0)
+    peak_bytes = max(tracker.peak.values(), default=0)
     trips = scan_trip_counts(cfg)
     # the eager loop issues every layer's collectives: no trip scaling
-    stats = collective_bytes(recorder.record, 1)
+    stats = collective_bytes(tracker.record, 1)
 
     analytic = step_cost(cfg, get_shape(shape_name))
     terms = roofline_terms(analytic, chips, stats.total_bytes / chips
@@ -123,8 +215,9 @@ def record(arch: str, shape_name: str, mesh, mesh_name: str,
             "output_bytes": out_bytes,
             "temp_bytes": max(peak_bytes - arg_bytes, 0),
             "peak_per_device_gb": round(peak_bytes / 2**30, 3),
-            "peak_source": "torch MemTracker under FakeTensorMode: "
-                           "arguments plus every tensor the step makes",
+            "peak_source": "StepTracker (torch MemTracker's count) under "
+                           "FakeTensorMode: arguments plus every tensor "
+                           "the step makes",
         },
         "hlo_cost": {"flops_per_device": None, "bytes_per_device": None,
                      "note": "torch has no HLO cost analysis; see "

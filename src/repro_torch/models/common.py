@@ -12,12 +12,14 @@ A model is described by a *parameter table*: a nested dict of ``ParamDef``
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.utils import time_loops
 from repro_torch.utils.shardctx import (P, _sanitize, mesh_axes,  # noqa: F401
                                         placements)
 
@@ -221,13 +223,23 @@ def time_chunks(fn, seqs, carry):
     each chunk under ``remat``, as the reference's
     ``xlstm._chunked_time_scan`` and ``ssm.ssm_apply_seq`` do: the
     backward keeps a carry per chunk instead of per step. The same steps
-    in the same order either way."""
+    in the same order either way. Inside the dry-run's
+    ``utils.time_loops.stand_in_time_loops`` the loops in ``fn`` are cut
+    (a step without autograd; every chunk but the last but one)."""
     S = seqs[0].shape[1]
     if not (torch.is_grad_enabled() and S % TIME_CHUNK == 0
             and S > TIME_CHUNK):
-        return fn(*seqs, carry)
+        # the dry-run cuts the loops of a step without autograd
+        return time_loops.run_cut(not torch.is_grad_enabled(), fn, *seqs,
+                                  carry)
     ys = []
-    for t in range(0, S, TIME_CHUNK):
-        y, carry = remat(fn, *[s[:, t:t + TIME_CHUNK] for s in seqs], carry)
+    n = S // TIME_CHUNK
+    for i in range(n):
+        # under autograd the dry-run cuts the loops of every chunk but the
+        # last but one, in the forward and the recomputation
+        chunk = functools.partial(time_loops.run_cut, i != n - 2, fn)
+        t = i * TIME_CHUNK
+        y, carry = remat(chunk, *[s[:, t:t + TIME_CHUNK] for s in seqs],
+                         carry)
         ys.append(y)
     return torch.cat(ys, dim=1), carry

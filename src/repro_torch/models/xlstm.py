@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.mlstm_scan import ops as mlstm_ops
 from repro_torch.models.common import ParamDef, rms_norm, time_chunks
+from repro_torch.utils import time_loops
 
 
 @dataclass(frozen=True)
@@ -120,7 +121,8 @@ def _slstm_scan(pre, r, carry):
     returns (h (B,S,d), carry)."""
     c, n, m, h = carry
     hs = []
-    for t in range(pre.shape[1]):
+    S = pre.shape[1]
+    for t in time_loops.steps(S):
         gates = pre[:, t] + h @ r
         i, f, zg, o = torch.chunk(gates, 4, dim=-1)
         logf = F.logsigmoid(f)
@@ -132,6 +134,8 @@ def _slstm_scan(pre, r, carry):
         h = torch.sigmoid(o) * c / torch.clamp_min(n, 1.0)
         m = m_new
         hs.append(h)
+        if t == 0:
+            hs += time_loops.kept_outputs(h, S)
     return torch.stack(hs, dim=1), (c, n, m, h)
 
 

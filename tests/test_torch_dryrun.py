@@ -5,6 +5,8 @@ qwen3-1.7b ``decode_32k`` on the 16x16 production mesh, and
 ``analysis.hlo.collective_bytes`` held to the reference's byte convention
 on products whose collectives are known.
 """
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -156,3 +158,129 @@ def test_kernel_wrappers_refuse_dtensors(fake4, name):
     out = calls[name](q)
     out = out[0] if isinstance(out, tuple) else out
     assert torch.isfinite(out).all()
+
+
+# -- the recurrent archs: the time loops' stand-in -----------------------------
+
+RECURRENT = [("xlstm-350m", "train_4k"), ("xlstm-350m", "prefill_32k"),
+             ("hymba-1.5b", "train_4k"), ("hymba-1.5b", "prefill_32k")]
+
+
+def _reduced(monkeypatch):
+    real = specs.get_config
+    monkeypatch.setattr(specs, "get_config", lambda a: real(a).reduced())
+
+
+@pytest.mark.parametrize("arch,shape", RECURRENT)
+def test_reduced_recurrent_arch_records_on_the_2x2_mesh(fake4, monkeypatch,
+                                                        arch, shape):
+    """Reduced xlstm-350m and hymba-1.5b at train_4k (S 4096, 64
+    recomputed chunks a recurrence) and prefill_32k (S 32768) on a fake
+    2x2 mesh: the step finishes with its time loops stood in for, and
+    the record has the reference's keys."""
+    _reduced(monkeypatch)
+    rec = dryrun.record(arch, shape, fake4, "test_2x2")
+    _check_record(rec, arch, shape, "test_2x2", 4)
+    assert rec["collectives"]["counts"].get("all-reduce", 0) > 0
+
+
+def _kept(rec):
+    m, c = rec["memory"], rec["collectives"]
+    return dict(peak=m["peak_per_device_gb"], temp=m["temp_bytes"],
+                output=m["output_bytes"], arguments=m["argument_bytes"],
+                by_kind=dict(c["by_kind_bytes"]), counts=dict(c["counts"]))
+
+
+@pytest.mark.parametrize("arch,shape", RECURRENT)
+def test_stand_in_leaves_the_record_unchanged(fake4, monkeypatch, arch,
+                                              shape):
+    """At a size where the full time loops finish (S 64 in 4 recomputed
+    chunks of 16 steps for train_4k; S 256 for prefill_32k: the sLSTM's
+    256 steps, the mLSTM's 4 and the SSM's 8 chunks) the record with
+    the loops stood in for equals the full loops' record: peak, temp,
+    output and argument bytes, collective bytes and counts by kind. The
+    full loops run second, so a record made first in the process is held
+    too."""
+    from repro_torch import shapes
+    from repro_torch.models import common
+    _reduced(monkeypatch)
+    S = 64 if shape == "train_4k" else 256
+    monkeypatch.setitem(shapes.INPUT_SHAPES, shape, dataclasses.replace(
+        shapes.INPUT_SHAPES[shape], seq_len=S))
+    monkeypatch.setattr(common, "TIME_CHUNK", 16)
+    cut = _kept(dryrun.record(arch, shape, fake4, "t", stand_in=True))
+    full = _kept(dryrun.record(arch, shape, fake4, "t", stand_in=False))
+    assert cut == full
+
+
+@pytest.mark.parametrize("arch,shape,S", [
+    ("qwen3-1.7b", "train_4k", 128), ("qwen3-1.7b", "prefill_32k", 256),
+    ("qwen3-1.7b", "decode_32k", 256),
+    ("granite-moe-3b-a800m", "train_4k", 128),
+    ("hymba-1.5b", "train_4k", 64)])
+def test_step_tracker_matches_memtracker(fake4, monkeypatch, arch, shape,
+                                         S):
+    """``dryrun.StepTracker`` keeps what torch's ``MemTracker`` and
+    ``CollectiveRecorder`` (a ``CommDebugMode``), run beside it on the
+    same step, keep: the per-device peak and every collective entry."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    from repro_torch import shapes
+    from repro_torch.models import common
+    from repro_torch.utils.shardctx import use_mesh
+    _reduced(monkeypatch)
+    monkeypatch.setitem(shapes.INPUT_SHAPES, shape, dataclasses.replace(
+        shapes.INPUT_SHAPES[shape], seq_len=S))
+    monkeypatch.setattr(common, "TIME_CHUNK", 16)
+    step, args, _, meta = specs.build_lowering(arch, shape, fake4)
+    rec, mt = CollectiveRecorder(), MemTracker()
+    tracker = dryrun.StepTracker(meta["fake_mode"])
+    local = [dryrun._local(t) for t in dryrun._flat(args)]
+    mt.track_external(*local)
+    tracker.track(*local)
+    with meta["fake_mode"], use_mesh(fake4), \
+            dryrun._propagation_untracked(), rec, mt, tracker, \
+            torch.set_grad_enabled(meta["kind"] == "train"):
+        step(*args)
+    peak = max(d["Total"] for d in mt.get_tracker_snapshot("peak").values())
+    assert max(tracker.peak.values()) == peak > 0
+    assert tracker.record == rec.record and len(rec.record) > 0
+
+
+def test_records_do_not_depend_on_what_ran_before(fake4, monkeypatch):
+    """The same step recorded twice in one process gives one record: the
+    first, whose DTensor sharding propagation misses its cache, makes
+    global-shaped fake tensors that are not counted as the step's."""
+    from repro_torch import shapes
+    from repro_torch.models import common
+    _reduced(monkeypatch)
+    monkeypatch.setitem(shapes.INPUT_SHAPES, "train_4k", dataclasses.replace(
+        shapes.INPUT_SHAPES["train_4k"], seq_len=64))
+    monkeypatch.setattr(common, "TIME_CHUNK", 16)
+    first = _kept(dryrun.record("hymba-1.5b", "train_4k", fake4, "t"))
+    assert _kept(dryrun.record("hymba-1.5b", "train_4k", fake4, "t")) == \
+        first
+
+
+def test_time_loops_cut_only_under_fake_tensors():
+    """Outside ``stand_in_time_loops`` every loop runs every step; the
+    context refuses real tensors; inside it a cut loop runs its first and
+    last steps, with the kept outputs of the others as one block."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.utils import time_loops
+    assert list(time_loops.steps(5)) == [0, 1, 2, 3, 4]
+    assert time_loops.run_cut(True, lambda: list(time_loops.steps(5))) == \
+        [0, 1, 2, 3, 4]
+    with pytest.raises(RuntimeError, match="FakeTensorMode"):
+        with time_loops.stand_in_time_loops():
+            pass
+    with FakeTensorMode(), time_loops.stand_in_time_loops():
+        h = torch.empty(2, 3)
+        assert list(time_loops.run_cut(True, time_loops.steps, 5)) == [0, 4]
+        assert list(time_loops.run_cut(True, time_loops.steps, 2)) == [0, 1]
+        assert list(time_loops.run_cut(False, time_loops.steps, 5)) == \
+            [0, 1, 2, 3, 4]
+        kept = time_loops.run_cut(True, time_loops.kept_outputs, h, 5)
+        assert len(kept) == 3 and all(k.shape == (2, 3) for k in kept)
+        assert all(k._base is kept[0]._base is not None for k in kept)
