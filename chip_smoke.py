@@ -31,7 +31,9 @@ exits non-zero:
                PyTorch version (K3 also against the transcription of its
                arithmetic); kernel, plain and library times, the
                card's bound for the same work, bound_frac (bound / kernel
-               time) and vs_library (kernel / library time).
+               time) and vs_library (kernel / library time); each K1 line
+               names the kernel that ran (``kernel_for``: "sm90" at every
+               served shape).
   4. model   — full-width qwen3-1.7b, xlstm-350m, hymba-1.5b,
                granite-moe-3b-a800m, llava-next-mistral-7b (B 4, S 4096:
                2880 patch embeddings, then 1216 tokens) and
@@ -495,7 +497,8 @@ def check_flash(fl, cfg, dev, cases=FLASH_CASES, model="qwen3-1.7b"):
         m = dict(**err, **timing(kern, plain, lib, b_ms, b_by))
         emit(phase="kernel", name="K1 flash_attention", model=model, B=B,
              S=Sq, Sk=Sk, causal=causal, H=H, KV=KV, dh=dh, window=window,
-             pairs=pairs, host_ms=kern_host, **m)
+             kernel=fl.kernel_for(q.dtype, dh), pairs=pairs,
+             host_ms=kern_host, **m)
         if main is None:
             main = m
     return main

@@ -2,25 +2,33 @@
 attention over an int8 cache) of the PyTorch/CUDA port against variants
 of their own sources, on one NVIDIA GPU.
 
-    python3 scripts/attention_variants.py
+    python3 scripts/attention_variants.py [--k1]
 
 Each variant is the committed source (``src/repro_torch/csrc``) with one
 textual change, built by nvcc beside it into ``build/variants`` and timed
 on the same inputs in the same process as the committed kernel and (K1,
 K2) as ``scaled_dot_product_attention``, at the serving shapes of
-qwen3-1.7b and hymba-1.5b (``chip_smoke.py``'s kernel phase); K3 also at
-B 8 (B*KV = 64 rows) under K2's launch plan beside its own. K2 and K3 are
-one source, so K2's variants are K3's too. It shows what each design
-choice is worth; it also times empty kernel launches (plain, and in a
-cluster of 8 CTAs), the floor under any one-launch kernel. Prints one JSON
-line per shape and the card's name and power limit. Needs CUDA and nvcc.
+qwen3-1.7b and hymba-1.5b (``chip_smoke.py``'s kernel phase; K1 also at
+llava-next-mistral-7b's S 4096 and whisper-large-v3's 1500 x 1500
+encoder); K3 also at B 8 (B*KV = 64 rows) under K2's launch plan beside
+its own. K2 and K3 are one source, so K2's variants are K3's too. K1's
+variants are of its Hopper kernel (bf16 at dh 64 and 128), among them
+diagnostics that drop its softmax, its products or its loads; the
+committed K1 is also traced once by torch.profiler at each shape. It shows
+what each design choice is worth; it also times empty kernel launches
+(plain, and in a cluster of 8 CTAs), the floor under any one-launch
+kernel. Prints the variants that spill, one JSON line per shape and the
+card's name and power limit; ``--k1`` builds and times K1 alone. Needs
+CUDA and nvcc.
 """
 from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -36,15 +44,81 @@ from repro_torch.kernels.flash_attention import ops as fl  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
 
 OUT = ROOT / "build" / "variants"
-TILE = """  static constexpr int NW = 4;
-  static constexpr int MT = DH == 64 || DH == 128 ? 2 : 1;
-  static constexpr int BK = DH >= 128 ? 32 : 64;"""
+# K1's bf16 kernel at dh 64 and 128 (flash_fwd_bf16_sm90)
+# the turns of the ping-pong, each made a no-op
+NO_PINGPONG = [("named_bar_sync(1 + wg, 256);", "(void)0;"),
+               ("named_bar_arrive(1 + (wg + 1) % NC, 256);", "(void)0;"),
+               ("  if (wg == NC - 1) named_bar_arrive(1, 256);\n", "")]
+CONSUMERS = "  static constexpr int CONSUMERS = DH == 64 ? 3 : 2;"
+BK = "  static constexpr int BK = DH == 64 ? 112 : 128;"
+STAGES = "  static constexpr int STAGES = DH == 64 ? 4 : 3;"
+SOFTMAX = "    auto softmax = [&](int i) {\n"
+SERIAL = """      for (int i = i_lo; i < i_hi; ++i) {
+        acquire(i);
+        fence_operands();
+        issue_qk(i);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(sacc);
+        softmax(i);
+        rescale_and_pack();
+        fence_operands();
+        issue_pv(i);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(acc);
+        release(i);
+      }
+"""
+NO_SOFTMAX = (SOFTMAX, SOFTMAX + "      alpha[0] = alpha[1] = 1.f;\n"
+              "      if (i >= 0) return;\n")
+NO_LOADS = ("        mbar_expect_tx(full(s), 2 * TL::KV_BYTES);\n",
+            "        mbar_arrive(full(s));\n        ++it;\n        continue;\n")
+NO_PRODUCTS = [("        if constexpr (BK_ == 112)\n",
+                "        if constexpr (BK_ < 0)\n"),
+               ("        else\n          wgmma_ss_n128",
+                "        else if constexpr (BK_ < 0)\n          wgmma_ss_n128"),
+               ("        if constexpr (DH == 64)\n",
+                "        if constexpr (DH < 0)\n"),
+               ("        else\n          wgmma_rs_n128_tb",
+                "        else if constexpr (DH < 0)\n"
+                "          wgmma_rs_n128_tb")]
 K1_VARIANTS = {
-    # 64-key blocks at dh 128 (MT x 16 x 64 scores: the accumulators spill)
-    "bk64": [(TILE, TILE.replace("DH >= 128 ? 32 : 64",
-                                 "DH == 256 ? 32 : 64"))],
-    # 16 query rows a warp: each K/V fragment feeds one mma, not two
-    "rows16": [(TILE, TILE.replace("DH == 64 || DH == 128 ? 2 : 1", "1"))],
+    # the consumers issue their products whenever they are ready
+    "no_pingpong": NO_PINGPONG,
+    # neither ping-pong nor Q K^T of block i beside P V of block i - 1:
+    # each block's products and softmax one after the other
+    "serial": NO_PINGPONG + [("PIPELINED", SERIAL)],
+    # one query tile a CTA, a CTA for every tile
+    "one_tile": [("<<<min(n_tiles, sms),", "<<<n_tiles,")],
+    # a ring of 2 stages at both head dims
+    "stages2": [(STAGES, "  static constexpr int STAGES = 2;")],
+    # two consumer warpgroups (128 query rows) at dh 64 too
+    "two_consumers": [(CONSUMERS, CONSUMERS.replace("DH == 64 ? 3 : 2",
+                                                    "2"))],
+    # 128-key blocks at dh 64 too (the consumers spill)
+    "bk128": [(BK, "  static constexpr int BK = 128;")],
+    # the register split at dh 64: the producer warpgroup keeps 24 or 40
+    "p24": [("CONSUMERS == 3 ? 32 : 40", "CONSUMERS == 3 ? 24 : 40")],
+    "p40": [("CONSUMERS == 3 ? 32 : 40", "CONSUMERS == 3 ? 40 : 40"),
+            ("CONSUMERS == 3 ? 160 : 232", "CONSUMERS == 3 ? 152 : 232")],
+    # diagnostics (wrong results): without the softmax (p = s), without
+    # the products, without the loads (the producer only arrives)
+    "no_softmax": [NO_SOFTMAX],
+    "no_products": NO_PRODUCTS,
+    "no_loads": [NO_LOADS],
+    "products_only": [NO_SOFTMAX, NO_LOADS],
+    "softmax_only": NO_PRODUCTS + [NO_LOADS],
+    # the softmax with a saturating FMA in place of its exp2 (p in [0, 1]
+    # as before, so the epilogue's divisions keep their fast path)
+    "no_exp2": [("p = ex2(fmaf(sacc[4 * j + e], sc, neg_m[e / 2]));",
+                 "p = __saturatef(fmaf(sacc[4 * j + e], sc, neg_m[e / 2])"
+                 " + 1.f);")],
+    # the epilogue multiplies by 1 / l in place of dividing by l
+    "recip_epilogue": [("pack_bf16(acc[4 * j + 2 * r] / lr, "
+                        "acc[4 * j + 2 * r + 1] / lr)",
+                        "pack_bf16(acc[4 * j + 2 * r] * (1.f / lr), "
+                        "acc[4 * j + 2 * r + 1] * (1.f / lr))")],
 }
 LAUNCH = "cfg.dynamicSmemBytes = smem_for(n_stages);"
 TILE_PASS = "      pass.tile(kt, kt + TS * RB, mask, scale_log2, qsm, pw, lane);"
@@ -181,7 +255,30 @@ def build(sources):
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        (OUT / f"{name}.log").write_text(log)
     return {name: ctypes.CDLL(str(OUT / f"{name}.so")) for name in sources}
+
+
+def spills(name):
+    """{kernel: [registers, spilled bytes]} of a variant's build, for the
+    kernels that spill."""
+    log = (OUT / f"{name}.log").read_text()
+    out = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        used = re.search(r"Used (\d+) registers", part)
+        spill = sum(int(n) for n in re.findall(r"(\d+) bytes spill", part))
+        if spill:
+            out[part.split("'", 1)[0]] = [int(used.group(1)), spill]
+    return out
+
+
+def pipelined_block(text):
+    """The committed K1 consumer's pipelined products (from its first
+    block's acquire to its last P V's release)."""
+    a = text.index("      acquire(i_lo);\n      begin_turn();")
+    end = "      release(i_hi - 1);\n"
+    b = text.index(end, a) + len(end)
+    return text[a:b]
 
 
 def variants(path, table):
@@ -190,6 +287,8 @@ def variants(path, table):
     for name, subs in table.items():
         t = text
         for old, new in subs:
+            if old == "PIPELINED":
+                old = pipelined_block(text)
             if old not in t:
                 raise RuntimeError(f"{name}: source text not found: {old}")
             t = t.replace(old, new)
@@ -207,11 +306,12 @@ def flash_runner(lib):
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
 
-    def run(q, k, v, window):
-        B, S, H, dh = q.shape
+    def run(q, k, v, causal, window):
+        B, Sq, H, dh = q.shape
         o = torch.empty_like(q)
         _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), 1, B, S, S, H, k.shape[2], dh, 1,
+                        o.data_ptr(), fl.KERNELS[fl.kernel_for(q.dtype, dh)],
+                        B, Sq, k.shape[1], H, k.shape[2], dh, int(causal),
                         window, dh ** -0.5, stream()), "flash variant")
         return o
     return run
@@ -283,17 +383,104 @@ def quant_sets(g, B, S, H, KV, dh):
     return [first] + [mk() for _ in range(cs.n_sets(cs.nbytes(*first)) - 1)]
 
 
+# K1's shapes: (model, B, Sq, Sk, H, KV, dh, causal, window), those of
+# chip_smoke.py's kernel phase at each head dim and mask
+K1_SHAPES = [
+    ("qwen3-1.7b", cs.SERVE_BATCH, cs.SERVE_SEQ, cs.SERVE_SEQ, 16, 8, 128,
+     True, 0),
+    ("hymba-1.5b", cs.SERVE_BATCH, cs.SERVE_SEQ, cs.SERVE_SEQ, 25, 5, 64,
+     True, 1024),
+    ("llava-next-mistral-7b", cs.SERVE_BATCH, cs.LLAVA_SEQ, cs.LLAVA_SEQ, 32,
+     8, 128, True, 0),
+    ("whisper-large-v3", cs.SERVE_BATCH, 1500, 1500, 20, 20, 64, False, 0),
+]
+
+
+def time_k1(libs, g):
+    for model, B, Sq, Sk, H, KV, dh, causal, window in K1_SHAPES:
+        mk = lambda: tuple(torch.randn(B, S, n, dh, generator=g,
+                                       device="cuda", dtype=torch.bfloat16)
+                           for S, n in ((Sq, H), (Sk, KV), (Sk, KV)))
+        sets = [mk() for _ in range(cs.n_sets(2 * cs.nbytes(*mk())))]
+        ref = fl.flash_attention_plain(*sets[0], causal=causal,
+                                       window=window)
+        runs = {n: (lambda r: lambda q, k, v: r(q, k, v, causal, window))(
+            flash_runner(lib)) for n, lib in libs.items()
+            if n.startswith("k1")}
+        tsets = [tuple(t.transpose(1, 2).contiguous() for t in s)
+                 for s in sets]
+        res = time_all(runs, sets, ref, lambda q, k, v: F.
+                       scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                    enable_gqa=True), tsets)
+        # the committed kernel's launch under torch.profiler: device µs
+        # by kernel name; the card's clock and power while it repeats
+        by_name, _ = cs.profiled(lambda: runs["k1"](*sets[0]))
+        clocks = k1_clocks(runs["k1"], sets[0])
+        print(json.dumps(dict(kernel="K1", model=model, B=B, Sq=Sq, Sk=Sk,
+                              H=H, KV=KV, dh=dh, causal=causal,
+                              window=window, ms_ms_err=res,
+                              profile_us=by_name, clocks=clocks)),
+              flush=True)
+
+
+def k1_host_us(n=2000):
+    """Host µs a K1 wrapper call takes at one query and one key (device
+    work negligible, so the loop runs at the host's pace), by kernel: the
+    mma.sync kernel at dh 32 launches as it is, the Hopper kernel at dh 64
+    and 128 first encodes its three tensor maps."""
+    out = {}
+    for dh in (32, 64, 128):
+        q = torch.randn(1, 1, 1, dh, device="cuda", dtype=torch.bfloat16)
+        for _ in range(50):
+            fl.flash_attention(q, q, q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fl.flash_attention(q, q, q)
+        torch.cuda.synchronize()
+        out[f"{fl.kernel_for(q.dtype, dh)} dh {dh}"] = \
+            (time.perf_counter() - t0) / n * 1e6
+    return out
+
+
+def k1_clocks(run, args, seconds=3.0):
+    """The card's SM clock (MHz) and power draw (W), sampled by nvidia-smi
+    every 100 ms while ``run(*args)`` repeats for ``seconds``: min,
+    median, max of each."""
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            run(*args)
+        torch.cuda.synchronize()
+    smi.terminate()
+    out, _ = smi.communicate(timeout=30)
+    rows = [[float(x) for x in line.split(",")]
+            for line in out.strip().splitlines()[2:-1]]
+    stats = {}
+    for i, key in enumerate(("sm_mhz", "power_w")):
+        v = sorted(r[i] for r in rows)
+        stats[key] = [v[0], v[len(v) // 2], v[-1]] if v else None
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("attention_variants: needs a CUDA card", file=sys.stderr)
         return 1
+    only_k1 = sys.argv[1:] == ["--k1"]
     smi = cs.nvidia_smi_line()
     print(smi, flush=True)
-    libs = build({"k1": (ROOT / "src/repro_torch/csrc/flash_attention.cu")
-                  .read_text(),
-                  **{f"k1_{n}": t for n, t in variants(
-                      "src/repro_torch/csrc/flash_attention.cu",
-                      K1_VARIANTS).items()},
+    k1 = {"k1": (ROOT / "src/repro_torch/csrc/flash_attention.cu")
+          .read_text(),
+          **{f"k1_{n}": t for n, t in variants(
+              "src/repro_torch/csrc/flash_attention.cu",
+              K1_VARIANTS).items()}}
+    libs = build(k1 if only_k1 else
+                 {**k1,
                   "k2": (ROOT / "src/repro_torch/csrc/decode_attention.cu")
                   .read_text(),
                   **{f"k2_{n}": t for n, t in variants(
@@ -303,28 +490,18 @@ def main() -> int:
                       "src/repro_torch/csrc/decode_attention.cu",
                       K3_VARIANTS).items()},
                   "floor": FLOOR})
+    print(json.dumps({"spilling": {n: spills(n) for n in libs
+                                   if spills(n)}}), flush=True)
     g = torch.Generator("cuda").manual_seed(1)
     bf = torch.bfloat16
+    time_k1(libs, g)
+    print(json.dumps({"k1_host_us": k1_host_us()}), flush=True)
+    if only_k1:
+        print(smi, flush=True)
+        return 0
     for model, H, KV, dh, window in [("qwen3-1.7b", 16, 8, 128, 0),
                                      ("hymba-1.5b", 25, 5, 64, 1024)]:
         B, S = cs.SERVE_BATCH, cs.SERVE_SEQ
-        mk = lambda: tuple(torch.randn(B, S, n, dh, generator=g,
-                                       device="cuda", dtype=bf)
-                           for n in (H, KV, KV))
-        sets = [mk() for _ in range(cs.n_sets(2 * cs.nbytes(*mk())))]
-        ref = fl.flash_attention_plain(*sets[0], window=window)
-        runs = {n: (lambda r: lambda q, k, v: r(q, k, v, window))(
-            flash_runner(lib)) for n, lib in libs.items()
-            if n.startswith("k1")}
-        tsets = [tuple(t.transpose(1, 2).contiguous() for t in s)
-                 for s in sets]
-        res = time_all(runs, sets, ref, lambda q, k, v: F.
-                       scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                    enable_gqa=True), tsets)
-        print(json.dumps(dict(kernel="K1", model=model, B=B, S=S, H=H,
-                              KV=KV, dh=dh, window=window,
-                              ms_ms_err=res)), flush=True)
-
         pos, ring = S + cs.DECODE_STEPS - 1, window > 0
         r = lambda *s: torch.randn(*s, generator=g, device="cuda", dtype=bf)
         mk = lambda: (r(B, 1, H, dh), r(B, S, KV, dh), r(B, S, KV, dh))

@@ -3,9 +3,9 @@
 q (B, Sq, H, dh), k/v (B, Sk, KV, dh) with GQA (H = KV * G); query i sits
 at position i and key j at position j, as in the reference's wrapper
 (``repro.kernels.flash_attention.ops.flash_attention``). On a CUDA tensor
-``flash_attention`` launches the kernel of ``csrc/flash_attention.cu``
-(bfloat16 on the tensor cores, float32 on the CUDA cores); on a CPU
-tensor it runs ``flash_attention_plain``.
+``flash_attention`` launches a kernel of ``csrc/flash_attention.cu``,
+the one ``kernel_for`` names (bfloat16 on the tensor cores, float32 on
+the CUDA cores); on a CPU tensor it runs ``flash_attention_plain``.
 """
 from __future__ import annotations
 
@@ -24,6 +24,27 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0):
     return masked_attention(q, k, v, torch.arange(Sq, device=q.device),
                             torch.arange(Sk, device=q.device),
                             causal=causal, window=window)
+
+
+# K1's kernels, by the code the C entry takes
+KERNELS = {"simt": 0, "mma_sync": 1, "sm90": 2}
+
+
+def kernel_for(dtype, dh: int) -> str:
+    """The kernel that runs K1 for inputs of ``dtype`` at head dim ``dh``:
+    ``"sm90"`` (wgmma fed by TMA, bf16 at dh 64 and 128, the head dims of
+    every served arch with attention), ``"mma_sync"`` (bf16 at dh 32 and
+    256) or ``"simt"`` (float32 on the CUDA cores, every dh). A fixed
+    choice: the C entry runs exactly this kernel or fails."""
+    if dh not in _build.HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {dh} not in "
+                         f"{_build.HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "simt"
+    if dtype == torch.bfloat16:
+        return "sm90" if dh in (64, 128) else "mma_sync"
+    raise ValueError(f"flash_attention: dtype {dtype}; the kernels take "
+                     f"float32 or bfloat16")
 
 
 def _check(q, k, v) -> None:
@@ -66,8 +87,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     o = torch.empty_like(q)
     fn = _build.entry("flash_attention", "flash_attention_fwd", 4, 9)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             _build.DTYPES[q.dtype], B, Sq, Sk, H, KV, dh, int(causal),
-             int(window), dh ** -0.5,
+             KERNELS[kernel_for(q.dtype, dh)], B, Sq, Sk, H, KV, dh,
+             int(causal), int(window), dh ** -0.5,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention")
     _build.count_launch(flash_attention)

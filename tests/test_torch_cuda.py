@@ -74,7 +74,7 @@ def _check_flash(gen, dtype, B, S, H, KV, dh, causal, window):
 @pytest.mark.parametrize("B,S,H,KV,dh", [
     (2, 256, 4, 2, 64), (1, 128, 4, 4, 32), (2, 192, 8, 2, 128),
     (1, 96, 3, 1, 64), (1, 64, 2, 2, 256), (1, 200, 2, 2, 64),
-    (2, 1024, 16, 8, 128), (1, 300, 25, 5, 64),
+    (2, 1024, 16, 8, 128), (1, 300, 25, 5, 64), (2, 300, 8, 2, 128),
 ])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 48),
                                            (True, 1024), (False, 0)])
@@ -82,18 +82,21 @@ def test_flash_kernel_vs_plain(gen, dtype, B, S, H, KV, dh, causal, window):
     _check_flash(gen, dtype, B, S, H, KV, dh, causal, window)
 
 
-# K1's tile edges: bf16 query blocks of 64 rows (16 a warp) and key blocks
-# of 64 (32 at dh 256); f32 query blocks of 64 and key blocks of 32
+# K1's tile edges: bf16 query tiles of 64 rows a warpgroup, 128 rows and
+# 128-key blocks at dh 128, 192 rows and 112-key blocks at dh 64; at dh 32
+# and 256 query blocks of 64 rows and key blocks of 64 (32 at dh 256); f32
+# query blocks of 64 and key blocks of 32
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dh", [32, 64, 128, 256])
-@pytest.mark.parametrize("S", [1, 15, 17, 63, 64, 65, 127, 129, 200, 1000])
+@pytest.mark.parametrize("S", [1, 15, 17, 63, 64, 65, 127, 129, 200, 1000,
+                               111, 112, 113, 128, 191, 192, 193, 1500])
 def test_flash_kernel_tile_edges(gen, dtype, dh, S):
     _check_flash(gen, dtype, 1, S, 4, 2, dh, True, 0)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dh", [64, 128, 256])
-@pytest.mark.parametrize("window", [1, 63, 64, 65])
+@pytest.mark.parametrize("window", [1, 63, 64, 65, 112, 127, 128, 129])
 def test_flash_kernel_window_edges(gen, dtype, dh, window):
     _check_flash(gen, dtype, 2, 200, 4, 2, dh, True, window)
 
@@ -402,9 +405,21 @@ def test_flash_kernel_at_whisper_shapes(gen, dtype, B, Sq, Sk):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_kernel_tail_key_block_by_batch_row(gen, dtype, dh):
+    """1500 keys: at dh 128 11 blocks of 128 and a tail of 92, at dh 64
+    13 blocks of 112 and a tail of 44, which TMA fills with zeros past
+    each batch row's last key (zero keys, masked to -1e30, not scored 0),
+    in three batch rows."""
+    _check_flash_cross(gen, dtype, 3, 432, 1500, 4, 2, dh)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("dh", [32, 64, 128, 256])
 @pytest.mark.parametrize("Sq,Sk", [(1, 100), (7, 100), (40, 100),
-                                   (150, 100), (1, 1500), (65, 1500)])
+                                   (150, 100), (1, 1500), (65, 1500),
+                                   (63, 193), (129, 64), (128, 128),
+                                   (193, 127), (192, 1500), (1500, 65)])
 def test_flash_kernel_non_causal_cross(gen, dtype, dh, Sq, Sk):
     """Fewer queries than keys and more, key counts off the key block."""
     _check_flash_cross(gen, dtype, 2, Sq, Sk, 4, 2, dh)
