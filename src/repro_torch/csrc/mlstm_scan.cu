@@ -16,9 +16,12 @@
 // Pallas kernel does. It runs exactly S steps: the Pallas wrapper's padded
 // steps (ig = -1e30, fg = 30) would move m, and the state with it.
 //
-// Two paths, chosen by S. From CL steps up (prefill) the chunkwise-
-// parallel form below runs; under CL steps (decode is S = 1) the step
-// kernel runs the recurrence as written.
+// Three kernels; the wrapper chooses (ops.py::kernel_for) and the C entry
+// runs exactly the one it names. From CL steps up (prefill) the chunkwise-
+// parallel form below runs: at dh 128 up on the Hopper kernel
+// (mlstm_cluster, one cluster launch), at dh 32 and 64 on two mma.sync
+// launches (the kernel "mma_sync"); under CL steps (decode is S = 1) the
+// step kernel runs the recurrence as written.
 //
 // What bounds it on the H100. The step form touches every element of C
 // three times a step (f C, + i v k, C q: 5 dh^2 flops), 21.5 GFLOP at
@@ -40,14 +43,30 @@
 // device memory once each way; the warp of rows 0.. of each (batch, head)
 // writes n and m.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include <mutex>
 
 #include "sm90_helpers.cuh"
+#include "sm90_tma.cuh"
 
 namespace {
+
+// the kernels by the code the C entry takes (ops.py::KERNELS)
+enum Kernel { STEPS = 0, MMA_SYNC = 1, SM90 = 2 };
+
+// device launches made, by kernel code
+std::atomic<long long> n_launches[3];
+
+// err, counting one launch of the kernel code if it is cudaSuccess
+cudaError_t counted(cudaError_t err, Kernel k) {
+  if (err == cudaSuccess) ++n_launches[k];
+  return err;
+}
 
 constexpr int NW = 4;           // warps per CTA
 constexpr int RW = 4;           // rows of C per warp
@@ -228,7 +247,7 @@ cudaError_t launch(const float* q, const float* k, const float* v,
                    cudaStream_t stream) {
   mlstm_scan_kernel<DH><<<dim3(DH / ROWS, B * H), NW * 32, 0, stream>>>(
       q, k, v, ig, fg, C0, n0, m0, h, C, n, m, S, H, has_state);
-  return cudaGetLastError();
+  return counted(cudaGetLastError(), STEPS);
 }
 
 // --- the chunkwise path ----------------------------------------------------
@@ -246,7 +265,8 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 //   C = g C0 + (w o V)^T K,   n = g n0 + sum_s w_s k_s.
 // Every exponent is at most 0: m_t bounds each term.
 //
-// Two launches. mlstm_chunk_prep, one CTA per (chunk, batch * head), runs
+// The kernel "mma_sync", two launches. mlstm_chunk_prep, one CTA
+// per (chunk, batch * head), runs
 // the scalar m recurrence up to its chunk, forms F, D, P = D o Q K^T and
 // the gate vectors (a, sum_s P_ts, w, g) once per chunk, and writes P^T
 // and the vectors to scratch. mlstm_chunk_state, one CTA per (R rows of
@@ -826,6 +846,628 @@ __global__ void __launch_bounds__(NT, 1)
     for (int j = tid; j < DH; j += NT) n_out[(size_t)bh * DH + j] = nv[j];
 }
 
+// --- the Hopper path (sm90): the chunkwise form in one cluster launch -------
+//
+// One launch: CTA x of (batch, head) row y owns rows [64 x, 64 x + 64) of
+// C, dh / 64 CTAs a row, in thread block clusters of CS = 2 (fewer at dh
+// 64; clusters of 8 or 4 do not all fit on the card at once: 15 of 16
+// and 30 of 32 at xlstm-350m's prefill, so the last ran as a second
+// wave). Two consumer warpgroups, 256 threads and nothing else (a wgmma
+// kernel's threads get the registers of whole warpgroups: with a producer
+// warp, or a producer warpgroup and setmaxnreg, ptxas kept 168 a thread
+// and C spilled); warpgroup w holds its rows of C over the 32-column
+// slices i with i % 2 == w in registers (128 a thread at dh 512), from
+// its load to its store. Per chunk of CL steps:
+//  - the q and k slices (CL x 32 columns each, 128-byte swizzled boxes)
+//    are loaded by TMA once for the cluster, multicast by its CTA 0, into
+//    a ring of 4 stages; each CTA loads its own rows of v (double
+//    buffered). The loads are issued by the consumers: slice L by
+//    warpgroup L % 2 at the start of its slice L - 2, CTA 0 first waiting
+//    until every CTA of the cluster has released slice L - 4;
+//  - warpgroup w, on each of its slices: C Q^T (its part of Q C0^T,
+//    transposed; A is C's columns, shuffled from the thread's registers
+//    into the A fragment), n0 . q, then the update C <- g C + (w o V)^T K
+//    (A = (w o V)^T from registers, B = K^T, transposed into shared
+//    memory) into a fresh accumulator added to C, and n <- g n + sum w k;
+//  - P = D o Q K^T is formed in the cluster: each CTA computes Q K^T over
+//    half the slices, reduces its half of P's rows over both CTAs'
+//    partials read through distributed shared memory, and gathers the
+//    other half (two exchanges a chunk, ordered by mbarriers each CTA
+//    arrives on in both; a third says the rows are gathered, since P is
+//    kept in warpgroup 0's arrays of the slice loop);
+//  - P V (A = V^T from registers) and the epilogue h_t = (P V + a_t Q
+//    C0^T) / max(|a_t n0 . q_t + sum_s P_ts|, 1).
+// Every product is wgmma m64nNk8 in 3xTF32: hi.hi + hi.lo + lo.hi, f32
+// accumulate. tf32 operands in shared memory are K-major only, so the two
+// products that contract over the step index take their step-major
+// operand from registers (v) or as a transpose (k). A shared-memory
+// operand's hi part is the f32 value itself (the tensor cores read its
+// top 19 bits) and its lo part x - trunc19(x), written beside it. m's
+// scalar recurrence is carried chunk to chunk in order by one thread, so
+// it is exact, and every CTA forms the chunk's gate vectors itself (64
+// scalars; an exchange would cost more). Shared memory at dh 512: the
+// ring 64 KB, v 32 KB, each warpgroup's lo parts and K^T 32 KB (P's hi and
+// lo parts over warpgroup 0's), the two partials of Q K^T 34 KB: 204 KB,
+// one CTA an SM.
+
+constexpr int SW = 32;          // floats a 128-byte swizzled row
+constexpr int SJ = 32;          // columns of q and k a slice
+constexpr int RING = 4;         // stages of the q, k ring
+constexpr int PT = CL + 4;      // row stride of the partial Q K^T
+
+// The float index of (row, col) in a box of rows of 32 floats laid out by
+// TMA's 128-byte swizzle (the box 1024-byte aligned).
+__device__ __forceinline__ int swz(int row, int col) {
+  return row * SW + ((((col >> 2) ^ (row & 7)) << 2) | (col & 3));
+}
+
+// x itself, as a value the compiler cannot see through: what is computed
+// from it is recomputed after this point instead of being hoisted out of
+// a loop and held in registers across it
+__device__ __forceinline__ int fresh(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// The thread's indices, from tid: its warp and lane, its consumer
+// warpgroup w, its thread ct and warp ww in that warpgroup, its fragment
+// row group g and column pair q, and its first row fr of a 64-row tile.
+#define MLSTM_THREAD(src)                                              \
+  [[maybe_unused]] const int tid = fresh(src), warp = tid >> 5,        \
+                             lane = tid & 31, w = warp >> 2,           \
+                             ct = tid & 127, ww = warp & 3,            \
+                             g = lane >> 2, q = lane & 3,              \
+                             fr = 16 * ww + g
+
+// x - trunc19(x): the part of x that a tf32 read of x drops (exact)
+__device__ __forceinline__ float tf32_lo(float x) {
+  return x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+}
+
+template <int DH>
+struct ClusterSmem {
+  static constexpr int NCTA = DH / 64;      // CTAs a (batch, head)
+  static constexpr int CS = NCTA < 2 ? NCTA : 2;   // CTAs a cluster
+  static constexpr int NSL = DH / SJ;       // slices of q, k a chunk
+  static constexpr int SPC = NSL / CS;      // slices of a CTA's share
+  static constexpr int RPC = CL / CS;       // rows of P a CTA reduces
+  // byte offsets from the 1024-aligned base
+  static constexpr int RING_B = 0;                       // RING x (q, k)
+  static constexpr int V_B = RING_B + RING * 16384;      // 2 x v
+  static constexpr int WORK_B = V_B + 2 * 16384;         // 2 x warpgroup
+  static constexpr int PH_B = WORK_B;                    // P hi, then lo,
+  static constexpr int PL_B = PH_B + 16384;              // over WG 0's
+  static constexpr int PART_B = WORK_B + 2 * 32768;      // 2 x Q K^T part
+  static constexpr int SMALL_B = PART_B + 2 * CL * PT * 4;
+  static constexpr int SMALL = 6 * CL + 2 * CL + DH + 4; // floats
+  static constexpr int BAR_B = SMALL_B + SMALL * 4;
+  static constexpr int BYTES = BAR_B + 16 * 8 + 1024;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(256, 1)
+    mlstm_cluster(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const float* __restrict__ ig, const float* __restrict__ fg,
+                  const float* __restrict__ C0, const float* __restrict__ n0,
+                  const float* __restrict__ m0, float* __restrict__ h,
+                  float* __restrict__ C_out, float* __restrict__ n_out,
+                  float* __restrict__ m_out, int S, int H, int has_state) {
+  using namespace repro_sm90;
+  using SM = ClusterSmem<DH>;
+  constexpr int CS = SM::CS, NSL = SM::NSL, SPC = SM::SPC, RPC = SM::RPC;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* bp = smem_raw + (base - smem_u32(smem_raw));
+  auto fptr = [&](int off) { return reinterpret_cast<float*>(bp + off); };
+  float* part = fptr(SM::PART_B);
+  float* Fc = fptr(SM::SMALL_B);
+  float* mc = Fc + CL;
+  float* igc = mc + CL;
+  float* av = igc + CL;
+  float* wv = av + CL;
+  float* rsum = wv + CL;
+  float* nqs = rsum + CL;       // [2][CL]
+  float* nv = nqs + 2 * CL;     // [DH]
+  float* scal = nv + DH;        // m, the chunk's start m, g
+  const uint32_t bars = base + SM::BAR_B;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto cempty = [&](int s) { return bars + 8 * (RING + s); };
+  auto vfull = [&](int s) { return bars + 8 * (2 * RING + s); };
+  const uint32_t pready = bars + 8 * (2 * RING + 2);
+  const uint32_t prready = pready + 8;
+  const uint32_t gdone = pready + 16;
+
+  const int rank = (int)cluster_rank();   // in the cluster
+  const int bh = blockIdx.y;
+  const int b = bh / H, hd = bh - b * H;
+  const int r0 = 64 * blockIdx.x;         // this CTA's rows of C
+  const int tid0 = threadIdx.x;
+  MLSTM_THREAD(tid0);
+  const int nc = (S + CL - 1) / CL;
+
+  if (tid == 0) {
+    for (int s = 0; s < RING; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(cempty(s), CS);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(vfull(s), 1);
+    }
+    mbar_init(pready, CS);
+    mbar_init(prready, CS);
+    mbar_init(gdone, CS);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  cluster_arrive();   // every barrier of the cluster is initialised
+  cluster_wait();
+
+  // The loads are issued from the consumers (a CTA of whole warpgroups
+  // of consumers keeps 255 registers a thread; a producer warp would
+  // leave them 168, and C would spill). Slice L (of NSL a chunk, the
+  // ring's stage L % RING) is armed by each CTA's warpgroup L % 2 at the
+  // start of its slice L - 2, whose stage's last slice, L - 4, that
+  // warpgroup has released; CTA 0 of the cluster then waits until every
+  // CTA has released slice L - 4 and multicasts q's and k's boxes.
+  const uint16_t mask = (uint16_t)((1u << CS) - 1);
+  auto issue_slice = [&](int L) {
+    if (L >= nc * NSL) return;
+    const int st = L % RING, i = L % NSL, t0 = L / NSL * CL;
+    mbar_expect_tx(full(st), 16384);
+    if (rank == 0) {
+      if (L >= RING) mbar_wait_cluster(cempty(st), (L / RING - 1) & 1);
+      const uint32_t qs = base + SM::RING_B + st * 16384;
+      tma_load_4d_mc(qs, &tq, full(st), SJ * i, hd, t0, b, mask);
+      tma_load_4d_mc(qs + 8192, &tk, full(st), SJ * i, hd, t0, b, mask);
+    }
+  };
+  // v's rows of chunk c into buffer c % 2 (its last chunk, c - 2, is
+  // done with it)
+  auto issue_v = [&](int c) {
+    if (c >= nc) return;
+    const int vb = c & 1;
+    mbar_expect_tx(vfull(vb), 16384);
+    for (int hb = 0; hb < 2; ++hb)
+      tma_load_4d(base + SM::V_B + vb * 16384 + hb * 8192, &tv, vfull(vb),
+                  r0 + 32 * hb, hd, c * CL, b);
+  };
+  if (ct == 0) {
+    issue_slice(w);
+    if (w == 0) issue_v(0);
+  }
+  auto sync_all = [] { named_bar_sync(1, 256); };
+  auto sync_wg = [&] { named_bar_sync(2 + w, 128); };
+  // the slices whose Q K^T is this CTA's share: SPC of them from
+  // SPC rank, those of this warpgroup's parity its share; its first one
+  // stores its partial, the others add to it
+  const int share0 = SPC * rank + w;
+  float* part_w = part + w * (CL * PT);
+
+  // C: warpgroup w's slices u (slice 2 u + w), m64n32 accumulators
+  float creg[NSL / 2][16];
+#pragma unroll
+  for (int u = 0; u < NSL / 2; ++u)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int r = fr + 8 * ((e & 3) >> 1);
+      const int j = SJ * (2 * u + w) + 8 * (e >> 2) + 2 * q + (e & 1);
+      creg[u][e] =
+          has_state ? C0[((size_t)bh * DH + r0 + r) * DH + j] : 0.f;
+    }
+  for (int j = tid; j < DH; j += 256)
+    nv[j] = has_state ? n0[(size_t)bh * DH + j] : 0.f;
+  if (tid == 0) scal[0] = has_state ? m0[bh] : NEG_INF;
+
+  const size_t gstride = (size_t)H;   // ig, fg: step t at [t * H]
+  const float* igp = ig + (size_t)b * S * H + hd;
+  const float* fgp = fg + (size_t)b * S * H + hd;
+  float ign[2] = {0.f, 0.f}, fgn[2] = {0.f, 0.f};
+  if (warp == 0)
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (32 * k + lane < S) {
+        ign[k] = igp[(32 * k + lane) * gstride];
+        fgn[k] = fgp[(32 * k + lane) * gstride];
+      }
+
+  for (int c = 0; c < nc; ++c) {
+    // the indices afresh in each chunk (and each slice): addresses
+    // computed from them, hoisted out of the loops, spilled C
+    MLSTM_THREAD(tid0);
+    const int t0 = c * CL;
+    const int n = min(CL, S - t0);
+    const int vb = c & 1;
+    if (tid == 0) issue_v(c + 1);
+    // the chunk's gates (warp 0): m by the step recurrence (lane 0),
+    // F = cumsum log sigmoid(fg); a, w, g
+    if (warp == 0) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        av[32 * k + lane] = log_sigmoid(fgn[k]);
+        igc[32 * k + lane] = ign[k];
+      }
+      if (c + 1 < nc)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int t = t0 + CL + 32 * k + lane;
+          ign[k] = t < S ? igp[t * gstride] : 0.f;
+          fgn[k] = t < S ? fgp[t * gstride] : 0.f;
+        }
+      __syncwarp();
+      if (lane == 0) {
+        // unrolled, so that the loads run ahead of the dependent chain
+        float m = scal[0], F = 0.f;
+        scal[1] = m;
+#pragma unroll
+        for (int t = 0; t < CL; ++t) {
+          if (t < n) {
+            const float lf = av[t];
+            m = fmaxf(lf + m, igc[t]);
+            F += lf;
+            Fc[t] = F;
+            mc[t] = m;
+          }
+        }
+        scal[0] = m;
+      }
+      __syncwarp();
+      const float ms = scal[1], FL = Fc[n - 1], mL = mc[n - 1];
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int t = 32 * k + lane;
+        av[t] = t < n ? expf(ms + Fc[t] - mc[t]) : 0.f;
+        wv[t] = t < n ? expf(igc[t] + FL - Fc[t] - mL) : 0.f;
+      }
+      if (lane == 0) scal[2] = expf(ms + FL - mL);
+    }
+    sync_all();
+    const float gd = scal[2];
+    mbar_wait(vfull(vb), (c >> 1) & 1);
+    const float* vs = fptr(SM::V_B + vb * 16384);   // [r / 32][s][r % 32]
+    // (w o V)^T or V^T as this thread's A fragment of k-step ks: rows r =
+    // fr (+8), columns s = 8 ks + q (+4)
+    auto v_frag = [&](int ks, bool weighted, int fr, int q,
+                      uint32_t (&ah)[4], uint32_t (&al)[4]) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = fr + 8 * (e & 1);
+        const int s = 8 * ks + q + 4 * (e >> 1);
+        float x = vs[(r >> 5) * (CL * SW) + swz(s, r & 31)];
+        if (weighted) x *= wv[s];
+        split_tf32(x, ah[e], al[e]);
+      }
+    };
+
+    float qc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) qc[e] = 0.f;
+    float nqp = 0.f;
+    const int nq_t = ct >> 1, nq_j = (ct & 1) * 16;
+
+#pragma unroll
+    for (int u = 0; u < NSL / 2; ++u) {
+      MLSTM_THREAD(tid0);
+      const int i = 2 * u + w;
+      const int L = c * NSL + i;
+      const int st = L % RING;
+      if (ct == 0) issue_slice(L + 2);
+      mbar_wait(full(st), (L / RING) & 1);
+      const uint32_t qs_a = base + SM::RING_B + st * 16384;
+      const float* qs = fptr(SM::RING_B + st * 16384);
+      const float* ks = qs + 2048;
+      const int wb = SM::WORK_B + w * 32768;
+      float* qlo = fptr(wb);
+      float* klo = fptr(wb + 8192);
+      float* kth = fptr(wb + 16384);   // K^T [s / 32][j][s % 32]
+      float* ktl = fptr(wb + 24576);
+      const bool share = i / SPC == rank;
+      if (u == 0 && w == 0 && c > 0)
+        mbar_wait_cluster(gdone, (c - 1) & 1);   // P's rows, over WG 0's
+                                                 // arrays, are gathered
+      // the lo parts of q (and k), elementwise in the swizzled layout
+      for (int e = ct; e < CL * SW / 4; e += 128) {
+        const float4 x = reinterpret_cast<const float4*>(qs)[e];
+        reinterpret_cast<float4*>(qlo)[e] = make_float4(
+            tf32_lo(x.x), tf32_lo(x.y), tf32_lo(x.z), tf32_lo(x.w));
+        if (share) {
+          const float4 y = reinterpret_cast<const float4*>(ks)[e];
+          reinterpret_cast<float4*>(klo)[e] = make_float4(
+              tf32_lo(y.x), tf32_lo(y.y), tf32_lo(y.z), tf32_lo(y.w));
+        }
+      }
+      // K^T, hi and lo: lanes run along s, each reading 4 columns j of
+      // its row of k and writing them down column s of K^T
+      for (int e = ct; e < CL * SW / 4; e += 128) {
+        const int s = e & (CL - 1), jq = e / CL;
+        const float4 x =
+            *reinterpret_cast<const float4*>(ks + swz(s, 4 * jq));
+        const float xv[4] = {x.x, x.y, x.z, x.w};
+        const int d0 = (s >> 5) * (SJ * SW);
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const int d = d0 + swz(4 * jq + cc, s & 31);
+          kth[d] = xv[cc];
+          ktl[d] = tf32_lo(xv[cc]);
+        }
+      }
+      fence_proxy_async();
+      sync_wg();
+
+      // C Q^T on the slice: A = C's columns of the slice, from the
+      // accumulator: this thread needs columns q and q + 4 of each 8,
+      // held by lanes 4 g + q / 2 and 4 g + 2 + q / 2 as their
+      // columns 2 (q / 2) + (q & 1)
+      const int src0 = (lane & ~3) | (q >> 1), src1 = src0 + 2;
+      const bool odd = q & 1;
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int kp = 0; kp < 2; ++kp) {   // k-steps 2 kp, 2 kp + 1
+#pragma unroll
+        for (int k2 = 0; k2 < 2; ++k2) {
+          const int kk = 2 * kp + k2;
+          float x[4];
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const float c0 = creg[u][4 * kk + 2 * hr];
+            const float c1 = creg[u][4 * kk + 2 * hr + 1];
+            const float e0 = __shfl_sync(0xffffffffu, c0, src0);
+            const float e1 = __shfl_sync(0xffffffffu, c1, src0);
+            const float f0 = __shfl_sync(0xffffffffu, c0, src1);
+            const float f1 = __shfl_sync(0xffffffffu, c1, src1);
+            x[hr] = odd ? e1 : e0;          // row fr + 8 hr, column q
+            x[2 + hr] = odd ? f1 : f0;      // row fr + 8 hr, column q + 4
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split_tf32(x[e], ah[k2][e], al[k2][e]);
+        }
+        reg_fence(qc);
+        wgmma_fence();
+#pragma unroll
+        for (int k2 = 0; k2 < 2; ++k2) {
+          const int kk = 2 * kp + k2;
+          const uint64_t bh_ = gmma_desc_sw128(qs_a + 32 * kk, 16);
+          const uint64_t bl_ = gmma_desc_sw128(smem_u32(qlo) + 32 * kk, 16);
+          wgmma_tf32_rs_n64(qc, ah[k2], bh_);
+          wgmma_tf32_rs_n64(qc, ah[k2], bl_);
+          wgmma_tf32_rs_n64(qc, al[k2], bh_);
+        }
+        wgmma_commit();
+        if (kp == 0) {
+          wgmma_wait<0>();
+          reg_fence(qc);
+        }
+      }
+      // n0 . q_t on the slice (the old n), beside the products
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj)
+        nqp = fmaf(nv[SJ * i + nq_j + jj], qs[swz(nq_t, nq_j + jj)], nqp);
+      wgmma_wait<0>();
+      reg_fence(qc);
+      if (share) {
+        // no product is in flight across this branch (ptxas would
+        // serialise every wgmma of the kernel)
+        float sh[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) sh[e] = 0.f;
+        reg_fence(sh);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t a_h = gmma_desc_sw128(qs_a + 32 * kk, 16);
+          const uint64_t a_l = gmma_desc_sw128(smem_u32(qlo) + 32 * kk, 16);
+          const uint64_t b_h = gmma_desc_sw128(qs_a + 8192 + 32 * kk, 16);
+          const uint64_t b_l = gmma_desc_sw128(smem_u32(klo) + 32 * kk, 16);
+          wgmma_tf32_ss_n64(sh, a_h, b_h);
+          wgmma_tf32_ss_n64(sh, a_h, b_l);
+          wgmma_tf32_ss_n64(sh, a_l, b_h);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(sh);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int t = fr + 8 * ((e & 3) >> 1);
+          const int s_ = 8 * (e >> 2) + 2 * q + (e & 1);
+          float& dst = part_w[t * PT + s_];
+          dst = i == share0 ? sh[e] : dst + sh[e];
+        }
+      }
+      sync_wg();   // the slice's old n is read
+
+      // n <- g n + sum_s w_s k_s on the slice
+      {
+        const int j = ct >> 2, s0 = (ct & 3) * 16;
+        float x = 0.f;
+#pragma unroll
+        for (int ss = 0; ss < 16; ++ss)
+          x = fmaf(wv[s0 + ss], ks[swz(s0 + ss, j)], x);
+        x += __shfl_xor_sync(0xffffffffu, x, 1);
+        x += __shfl_xor_sync(0xffffffffu, x, 2);
+        if ((ct & 3) == 0) nv[SJ * i + j] = fmaf(gd, nv[SJ * i + j], x);
+      }
+      // C <- g C + (w o V)^T K on the slice: the product in a fresh
+      // accumulator, then added to C (C itself is never a wgmma operand,
+      // which would pin each slice's registers to the accumulator's)
+      float up[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) up[e] = 0.f;
+#pragma unroll
+      for (int kp = 0; kp < 4; ++kp) {   // k-steps 2 kp, 2 kp + 1
+#pragma unroll
+        for (int k2 = 0; k2 < 2; ++k2)
+          v_frag(2 * kp + k2, true, fr, q, ah[k2], al[k2]);
+        reg_fence(up);
+        wgmma_fence();
+#pragma unroll
+        for (int k2 = 0; k2 < 2; ++k2) {
+          const int ks_ = 2 * kp + k2;
+          const int off = (ks_ >> 2) * (SJ * SW * 4) + 32 * (ks_ & 3);
+          const uint64_t b_h = gmma_desc_sw128(smem_u32(kth) + off, 16);
+          const uint64_t b_l = gmma_desc_sw128(smem_u32(ktl) + off, 16);
+          wgmma_tf32_rs_n32(up, ah[k2], b_h);
+          wgmma_tf32_rs_n32(up, ah[k2], b_l);
+          wgmma_tf32_rs_n32(up, al[k2], b_h);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(up);
+      }
+#pragma unroll
+      for (int e = 0; e < 16; ++e) creg[u][e] = fmaf(gd, creg[u][e], up[e]);
+      sync_wg();   // the stage and the warpgroup's arrays are free
+      if (ct == 0) mbar_arrive_cluster(mapa(cempty(st), 0));
+    }
+
+    // n0 . q_t: this warpgroup's part
+    nqp += __shfl_xor_sync(0xffffffffu, nqp, 1);
+    if ((ct & 1) == 0) nqs[w * CL + nq_t] = nqp;
+    sync_all();   // the partial Q K^T is whole
+    if (tid == 0) {
+      fence_cluster();
+      for (int rr = 0; rr < CS; ++rr) mbar_arrive_cluster(mapa(pready, rr));
+    }
+    mbar_wait_cluster(pready, c & 1);
+    // this CTA's rows of P = D o Q K^T, summed over the cluster's
+    // partials (the exponent masked before the exp); warp wp takes rows
+    // wp, wp + 8, ..., lanes s = lane and lane + 32
+    float* ph = fptr(SM::PH_B);
+    float* pl = fptr(SM::PL_B);
+    for (int tr = warp; tr < RPC; tr += 8) {
+      const int t = rank * RPC + tr;
+      float rs = 0.f;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int s_ = lane + 32 * k;
+        float sum = 0.f;
+#pragma unroll
+        for (int rr = 0; rr < CS; ++rr)
+#pragma unroll
+          for (int wg = 0; wg < 2; ++wg)
+            sum += ld_dsmem(
+                mapa(smem_u32(part + wg * (CL * PT) + t * PT + s_), rr));
+        const float p = t < n && s_ <= t
+                            ? expf(igc[s_] + Fc[t] - Fc[s_] - mc[t]) * sum
+                            : 0.f;
+        const int d = k * (CL * SW) + swz(t, lane);
+        ph[d] = p;
+        pl[d] = tf32_lo(p);
+        rs += p;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      if (lane == 0) rsum[t] = rs;
+    }
+    sync_all();
+    if (tid == 0) {
+      fence_cluster();
+      for (int rr = 0; rr < CS; ++rr)
+        mbar_arrive_cluster(mapa(prready, rr));
+    }
+    mbar_wait_cluster(prready, c & 1);
+    // the other CTAs' rows of P (hi and lo, both boxes: 128 bytes each a
+    // row) and their row sums
+    for (int e = tid; e < (CS - 1) * RPC * 32; e += 256) {
+      const int row = e >> 5, part_ = e & 31;
+      int rr = row / RPC;
+      rr += rr >= rank;
+      const int t = rr * RPC + row % RPC;
+      const int off = (part_ >> 4) * 16384 + ((part_ >> 3) & 1) * 8192 +
+                      t * 128 + (part_ & 7) * 16;
+      const float4 x = ld_dsmem4(mapa(base + SM::PH_B + off, rr));
+      *reinterpret_cast<float4*>(bp + SM::PH_B + off) = x;
+    }
+    for (int e = tid; e < (CS - 1) * RPC; e += 256) {
+      int rr = e / RPC;
+      rr += rr >= rank;
+      const int t = rr * RPC + e % RPC;
+      rsum[t] = ld_dsmem(mapa(smem_u32(rsum + t), rr));
+    }
+    fence_proxy_async();
+    sync_all();
+    if (tid == 0) {   // this CTA is done reading the others' rows of P
+      fence_cluster();
+      for (int rr = 0; rr < CS; ++rr) mbar_arrive_cluster(mapa(gdone, rr));
+    }
+
+    // P V on this warpgroup's half of t: A = V^T, B = P [t][s]
+    float pv[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) pv[e] = 0.f;
+    {
+      uint32_t ah[2][4], al[2][4];
+#pragma unroll
+      for (int kp = 0; kp < 4; ++kp) {   // k-steps 2 kp, 2 kp + 1
+#pragma unroll
+        for (int k2 = 0; k2 < 2; ++k2)
+          v_frag(2 * kp + k2, false, fr, q, ah[k2], al[k2]);
+        reg_fence(pv);
+        wgmma_fence();
+#pragma unroll
+        for (int k2 = 0; k2 < 2; ++k2) {
+          const int ks_ = 2 * kp + k2;
+          const int off =
+              (ks_ >> 2) * (CL * SW * 4) + w * 32 * 128 + 32 * (ks_ & 3);
+          const uint64_t b_h = gmma_desc_sw128(base + SM::PH_B + off, 16);
+          const uint64_t b_l = gmma_desc_sw128(base + SM::PL_B + off, 16);
+          wgmma_tf32_rs_n32(pv, ah[k2], b_h);
+          wgmma_tf32_rs_n32(pv, ah[k2], b_l);
+          wgmma_tf32_rs_n32(pv, al[k2], b_h);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(pv);
+      }
+    }
+    // Q C0^T: each warpgroup's share of the j sum, exchanged by halves of
+    // t through the partial's buffer (every CTA is done reading it)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int jt = e >> 2;   // 8-column block of t
+      if ((jt >> 2) != w) {
+        const int r = fr + 8 * ((e & 3) >> 1);
+        part[r * PT + 8 * jt + 2 * q + (e & 1)] = qc[e];
+      }
+    }
+    sync_all();
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = fr + 8 * (e >> 1);
+        const int t = 32 * w + 8 * jj + 2 * q + (e & 1);
+        if (t < n) {
+          const float a = av[t];
+          const float qct = qc[4 * (4 * w + jj) + e] + part[r * PT + t];
+          const float den = fmaxf(
+              fabsf(fmaf(a, nqs[t] + nqs[CL + t], rsum[t])), 1.f);
+          h[(((size_t)b * S + t0 + t) * H + hd) * DH + r0 + r] =
+              fmaf(a, qct, pv[4 * jj + e]) / den;
+        }
+      }
+    sync_all();   // v, the partial's buffer and the gates are free
+  }
+
+#pragma unroll
+  for (int u = 0; u < NSL / 2; ++u)
+#pragma unroll
+    for (int e = 0; e < 16; e += 2) {
+      const int r = fr + 8 * ((e & 3) >> 1);
+      const int j = SJ * (2 * u + w) + 8 * (e >> 2) + 2 * q;
+      *reinterpret_cast<float2*>(C_out + ((size_t)bh * DH + r0 + r) * DH +
+                                 j) = make_float2(creg[u][e], creg[u][e + 1]);
+    }
+  if (blockIdx.x == 0) {
+    for (int j = tid; j < DH; j += 256) n_out[(size_t)bh * DH + j] = nv[j];
+    if (tid == 0) m_out[bh] = scal[0];
+  }
+  cluster_arrive();   // no CTA leaves while another may still address it
+  cluster_wait();
+}
+
 constexpr int MAX_DEVICES = 64;
 
 // mlstm_chunk_state<DH, R>'s dynamic shared memory, allowed once per device
@@ -853,62 +1495,195 @@ cudaError_t launch_chunks(const float* q, const float* k, const float* v,
                           float* gates, int B, int S, int H, int has_state,
                           cudaStream_t stream) {
   constexpr int R = DH < 64 ? DH : 64;   // rows of C per CTA
+  if (PT == nullptr || gates == nullptr) return cudaErrorInvalidValue;
   const int nc = (S + CL - 1) / CL;
   mlstm_chunk_prep<DH><<<dim3(nc, B * H), NT, 0, stream>>>(
       q, k, ig, fg, m0, PT, gates, m, S, H, nc, has_state);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = counted(cudaGetLastError(), MMA_SYNC);
   if (err != cudaSuccess) return err;
   constexpr size_t bytes = ChunkSmem<DH, R>::bytes;
   err = allow_state_smem<DH, R>();
   if (err != cudaSuccess) return err;
   mlstm_chunk_state<DH, R><<<dim3(DH / R, B * H), NT, bytes, stream>>>(
       q, k, v, C0, n0, PT, gates, h, C, n, S, H, nc, has_state);
-  return cudaGetLastError();
+  return counted(cudaGetLastError(), MMA_SYNC);
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime
+// (so the library needs no link against libcuda); null if absent.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D map (dh, H, S, B), innermost first, over an f32 tensor in the
+// model layout (B, S, H, dh): boxes of 32 columns (128 bytes) x 1 head x
+// CL steps x 1 batch row, 128-byte swizzled; steps past S read as zeros.
+cudaError_t make_map(CUtensorMap* map, const float* ptr, int dh, int H,
+                     int S, int B) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)H, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 4, (cuuint64_t)H * dh * 4,
+                                 (cuuint64_t)S * H * dh * 4};
+  const cuuint32_t box[4] = {SW, 1, CL, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the Hopper kernel: one cluster of DH / 64 CTAs per (batch, head)
+template <int DH>
+cudaError_t launch_cluster(const float* q, const float* k, const float* v,
+                           const float* ig, const float* fg, const float* C0,
+                           const float* n0, const float* m0, float* h,
+                           float* C, float* n, float* m, int B, int S, int H,
+                           int has_state, cudaStream_t stream) {
+  using SM = ClusterSmem<DH>;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = make_map(&mq, q, DH, H, S, B);
+  if (err == cudaSuccess) err = make_map(&mk, k, DH, H, S, B);
+  if (err == cudaSuccess) err = make_map(&mv, v, DH, H, S, B);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mlstm_cluster<DH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SM::BYTES);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(SM::NCTA, B * H);
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = SM::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = SM::CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, mlstm_cluster<DH>, mq, mk, mv, ig, fg, C0,
+                           n0, m0, h, C, n, m, S, H, has_state);
+  if (err != cudaSuccess) return err;
+  return counted(cudaGetLastError(), SM90);
+}
+
+template <int DH>
+cudaError_t launch_kernel(int kernel, const float* q, const float* k,
+                          const float* v, const float* ig, const float* fg,
+                          const float* C0, const float* n0, const float* m0,
+                          float* h, float* C, float* n, float* m, float* PT,
+                          float* gates, int B, int S, int H, int has_state,
+                          cudaStream_t stream) {
+  if (kernel == STEPS)
+    return launch<DH>(q, k, v, ig, fg, C0, n0, m0, h, C, n, m, B, S, H,
+                      has_state, stream);
+  if (S < CL) return cudaErrorInvalidValue;   // the chunkwise kernels
+  if (kernel == MMA_SYNC)
+    return launch_chunks<DH>(q, k, v, ig, fg, C0, n0, m0, h, C, n, m, PT,
+                             gates, B, S, H, has_state, stream);
+  if constexpr (DH >= 128) {
+    if (kernel == SM90)
+      return launch_cluster<DH>(q, k, v, ig, fg, C0, n0, m0, h, C, n, m, B,
+                                S, H, has_state, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The steps per chunk of the chunkwise path: S >= this takes it.
+// The steps per chunk of the chunkwise kernels: they take S >= this.
 extern "C" int mlstm_scan_chunk() { return CL; }
 
+// The device launches this library has made of the kernel code's kernels
+// (the two-launch kernel counts two a call); -1 for another code.
+extern "C" long long mlstm_scan_device_launches(int kernel) {
+  return kernel >= 0 && kernel < 3 ? n_launches[kernel].load() : -1;
+}
+
+// How many clusters of the Hopper kernel at head dim dh fit on the current
+// card at once (cudaOccupancyMaxActiveClusters), or a negative error.
+extern "C" int mlstm_scan_max_clusters(int dh) {
+  int n = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  const auto query = [&](auto kernel, int ncta, int cs, int bytes) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(ncta, 1024);
+    cfg.blockDim = dim3(256);
+    cfg.dynamicSmemBytes = bytes;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  };
+  if (dh == 128)
+    query(mlstm_cluster<128>, 2, ClusterSmem<128>::CS,
+          ClusterSmem<128>::BYTES);
+  if (dh == 256)
+    query(mlstm_cluster<256>, 4, ClusterSmem<256>::CS,
+          ClusterSmem<256>::BYTES);
+  if (dh == 512)
+    query(mlstm_cluster<512>, 8, ClusterSmem<512>::CS,
+          ClusterSmem<512>::BYTES);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
 // q, k, v, h (B, S, H, dh); ig, fg (B, S, H); C0, C (B, H, dh, dh);
-// n0, n (B, H, dh); m0, m (B, H); all float32 and contiguous. C0, n0, m0
-// are read only when has_state is 1 (and may be null otherwise). For
-// S >= mlstm_scan_chunk() the chunkwise path runs, with scratch PT
-// (B * H * nc * CL * CL floats) and gates (B * H * nc * 4 * CL floats),
-// nc = ceil(S / CL), 16-byte aligned; below it the step kernel runs and
-// PT, gates may be null.
+// n0, n (B, H, dh); m0, m (B, H); all float32 and contiguous (q, k, v
+// 16-byte aligned). C0, n0, m0 are read only when has_state is 1 (and
+// may be null otherwise). kernel (ops.py::kernel_for): 0 = the step
+// kernel (any S), 1 = the two mma.sync chunkwise launches (S >=
+// mlstm_scan_chunk(), with scratch PT (B * H * nc * CL * CL floats) and
+// gates (B * H * nc * 4 * CL floats), nc = ceil(S / CL), 16-byte
+// aligned), 2 = the Hopper kernel (S >= mlstm_scan_chunk(), dh 128, 256
+// or 512, one cluster launch, no scratch; PT, gates may be null). Any
+// other combination is cudaErrorInvalidValue, never another kernel.
 extern "C" int mlstm_scan_fwd(const void* q, const void* k, const void* v,
                               const void* ig, const void* fg, const void* C0,
                               const void* n0, const void* m0, void* h,
                               void* C, void* n, void* m, void* PT,
-                              void* gates, int B, int S, int H, int dh,
-                              int has_state, void* stream) {
+                              void* gates, int kernel, int B, int S, int H,
+                              int dh, int has_state, void* stream) {
   if (B < 1 || S < 1 || H < 1 || B * H > 65535) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool chunks = S >= CL;
-#define MLSTM_CASE(D)                                                        \
-  case D:                                                                    \
-    if (chunks)                                                              \
-      return launch_chunks<D>(                                               \
-          static_cast<const float*>(q), static_cast<const float*>(k),        \
-          static_cast<const float*>(v), static_cast<const float*>(ig),       \
-          static_cast<const float*>(fg), static_cast<const float*>(C0),      \
-          static_cast<const float*>(n0), static_cast<const float*>(m0),      \
-          static_cast<float*>(h), static_cast<float*>(C),                    \
-          static_cast<float*>(n), static_cast<float*>(m),                    \
-          static_cast<float*>(PT), static_cast<float*>(gates), B, S, H,      \
-          has_state, st);                                                    \
-    return launch<D>(static_cast<const float*>(q),                           \
-                     static_cast<const float*>(k),                           \
-                     static_cast<const float*>(v),                           \
-                     static_cast<const float*>(ig),                          \
-                     static_cast<const float*>(fg),                          \
-                     static_cast<const float*>(C0),                          \
-                     static_cast<const float*>(n0),                          \
-                     static_cast<const float*>(m0), static_cast<float*>(h),  \
-                     static_cast<float*>(C), static_cast<float*>(n),         \
-                     static_cast<float*>(m), B, S, H, has_state, st);
+#define MLSTM_CASE(D)                                                       \
+  case D:                                                                   \
+    return launch_kernel<D>(                                                \
+        kernel, static_cast<const float*>(q), static_cast<const float*>(k), \
+        static_cast<const float*>(v), static_cast<const float*>(ig),        \
+        static_cast<const float*>(fg), static_cast<const float*>(C0),       \
+        static_cast<const float*>(n0), static_cast<const float*>(m0),       \
+        static_cast<float*>(h), static_cast<float*>(C),                     \
+        static_cast<float*>(n), static_cast<float*>(m),                     \
+        static_cast<float*>(PT), static_cast<float*>(gates), B, S, H,       \
+        has_state, st);
   switch (dh) {
     MLSTM_CASE(32)
     MLSTM_CASE(64)

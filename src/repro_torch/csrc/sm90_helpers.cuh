@@ -95,7 +95,10 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
 // is acc + cor. acc[i] holds the m16n8 tile of columns 8i..8i+7:
 // acc[i][0..3] at (row, col) = (g, 8i + 2q), (g, 8i + 2q + 1),
 // (g + 8, 8i + 2q), (g + 8, 8i + 2q + 1), g = lane / 4, q = lane % 4.
-template <int NTL, int K, typename FA, typename FB>
+// An operand whose values are exact in TF32 (A_EXACT, B_EXACT: bf16
+// values, for one) has no lo part, and its small product is left out.
+template <int NTL, int K, bool A_EXACT = false, bool B_EXACT = false,
+          typename FA, typename FB>
 __device__ __forceinline__ void warp_mma(float (&acc)[NTL][4],
                                          float (&cor)[NTL][4], FA a_at,
                                          FB b_at, int lane) {
@@ -113,9 +116,9 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NTL][4],
       uint32_t bh0, bl0, bh1, bl1;
       split_tf32(b_at(k0 + q, 8 * i + g), bh0, bl0);
       split_tf32(b_at(k0 + q + 4, 8 * i + g), bh1, bl1);
-      mma_tf32(cor[i], al, bh0, bh1);
+      if (!A_EXACT) mma_tf32(cor[i], al, bh0, bh1);
       mma_tf32(acc[i], ah, bh0, bh1);
-      mma_tf32(cor[i], ah, bl0, bl1);
+      if (!B_EXACT) mma_tf32(cor[i], ah, bl0, bl1);
     }
   }
 }

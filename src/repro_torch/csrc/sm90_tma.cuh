@@ -1,7 +1,10 @@
 // Device helpers for Hopper's own data path (sm_90a): mbarriers, TMA
-// tensor loads, wgmma shared-memory descriptors and products, and the
-// register hand-over between warpgroups (setmaxnreg). Used by K1's bf16
-// kernel at head dims 64 and 128 (flash_attention.cu).
+// tensor loads (multicast to a cluster too), thread block clusters and
+// their distributed shared memory, wgmma shared-memory descriptors and
+// products (bf16 and tf32), and the register hand-over between
+// warpgroups (setmaxnreg). Used by K1's bf16 kernel at head dims 64 and
+// 128 (flash_attention.cu), K4's chunkwise kernel (mlstm_scan.cu) and
+// K5's chunked kernel (ssm_scan.cu).
 #pragma once
 
 #include <cuda.h>
@@ -44,7 +47,10 @@ __device__ __forceinline__ uint64_t global_ns() {
 // Waits until the barrier's phase of the given parity has completed. A
 // wait of more than a second, orders of magnitude past any legitimate one
 // (a pipeline that lost an arrival), traps, so the launch fails with an
-// error instead of hanging the card.
+// error instead of hanging the card. The cost of that guard: after a trap
+// the process's CUDA context is unusable (every later call on it fails
+// with cudaErrorLaunchFailure), so a serving process that hits it must be
+// restarted; the card itself and other processes are unaffected.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint64_t t0 = 0;
   for (uint32_t n = 0;; ++n) {
@@ -61,6 +67,35 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (n > 1024 && (n & 1023) == 0 && global_ns() - t0 > 1000000000ull)
       __trap();
   }
+}
+
+// mbar_wait with acquire at cluster scope: for a barrier that other CTAs
+// of the cluster arrive on (mbar_arrive_cluster) after writing shared
+// memory that this CTA then reads through distributed shared memory.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint64_t t0 = 0;
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == 1024) t0 = global_ns();
+    if (n > 1024 && (n & 1023) == 0 && global_ns() - t0 > 1000000000ull)
+      __trap();
+  }
+}
+
+// Orders this thread's earlier memory operations (and, cumulatively,
+// those it has synchronised with) before its later ones at cluster scope.
+__device__ __forceinline__ void fence_cluster() {
+  asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
 }
 
 // --- named barriers ----------------------------------------------------------
@@ -89,6 +124,94 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The 3-D counterpart of tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// tma_load_4d into every CTA of the cluster named in mask (bit r: rank
+// r), at the same offsets dst and bar in each: each of them receives the
+// box and its barrier the bytes.
+__device__ __forceinline__ void tma_load_4d_mc(uint32_t dst,
+                                               const CUtensorMap* map,
+                                               uint32_t bar, int c0, int c1,
+                                               int c2, int c3,
+                                               uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "h"(mask)
+      : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// reads of it by the async proxy (wgmma operands, TMA stores).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// --- thread block clusters ---------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier in its two halves: every thread of every CTA of the
+// cluster arrives, then waits. Writes to shared memory before the arrive
+// are visible to the cluster's reads after the wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The shared::cluster address of this CTA's shared address a in the CTA
+// of the cluster of the given rank.
+__device__ __forceinline__ uint32_t mapa(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_dsmem(uint32_t a) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_dsmem4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
+}
+
+// An arrival on an mbarrier of another CTA of the cluster (a from mapa).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t a) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          a)
       : "memory");
 }
 
@@ -283,5 +406,63 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(accumulate));
 }
+
+// The products in tf32 (f32 operands, their top 19 bits read), f32
+// accumulate, k = 8 (32 bytes of K a row): the layouts are the bf16 ones
+// above. A from registers holds this thread's m16n8k8 tf32 A fragment of
+// its warp's 16 rows: a[0] (g, q), a[1] (g + 8, q), a[2] (g, q + 4),
+// a[3] (g + 8, q + 4), g = lane / 4, q = lane % 4. tf32 operands in shared
+// memory are K-major (the transpose bits exist for 16-bit types only).
+#define REPRO_D16                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),  \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),         \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define REPRO_D32                                                          \
+  REPRO_D16, "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),     \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),     \
+      "+f"(d[30]), "+f"(d[31])
+#define REPRO_R16                                                          \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define REPRO_R32                                                          \
+  REPRO_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "     \
+            "%27, %28, %29, %30, %31"
+
+// d (64 x 64) += A (64 x 8, shared) * B (8 x 64, shared)
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t a,
+                                                  uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" REPRO_R32
+      "}, %32, %33, 1, 1, 1;\n"
+      : REPRO_D32
+      : "l"(a), "l"(b));
+}
+
+// d (64 x 64) += A (64 x 8, registers) * B (8 x 64, shared)
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {" REPRO_R32
+      "}, {%32, %33, %34, %35}, %36, 1, 1, 1;\n"
+      : REPRO_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+// d (64 x 32) += A (64 x 8, registers) * B (8 x 32, shared)
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" REPRO_R16
+      "}, {%16, %17, %18, %19}, %20, 1, 1, 1;\n"
+      : REPRO_D16
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+}
+
+#undef REPRO_D16
+#undef REPRO_D32
+#undef REPRO_R16
+#undef REPRO_R32
 
 }  // namespace repro_sm90

@@ -18,12 +18,15 @@ scan runs exactly S steps: no padded steps move m. On a CUDA tensor
 ``mlstm_scan`` launches the kernel of ``csrc/mlstm_scan.cu``; on a CPU
 tensor it runs ``mlstm_scan_plain``.
 
-The kernel has two paths, chosen by S (``uses_chunks``). Below one chunk
-(``CHUNK`` steps; decode is S = 1) it runs the recurrence step by step.
-From one chunk up it runs the chunkwise-parallel form of the xLSTM paper,
-which ``mlstm_scan_chunked_plain`` transcribes: within a chunk of L steps
-h is two matrix products, and only (C, n, m) crosses chunks. Both paths
-compute ``mlstm_scan_plain``'s function.
+The wrapper runs the kernel ``kernel_for`` names. Below one chunk
+(``CHUNK`` steps; decode is S = 1) the step kernel runs the recurrence
+step by step. From one chunk up a chunkwise kernel runs the chunkwise-
+parallel form of the xLSTM paper, which ``mlstm_scan_chunked_plain``
+transcribes: within a chunk of L steps h is two matrix products, and only
+(C, n, m) crosses chunks. At dh 128 up that is the Hopper kernel, one
+cluster launch on wgmma in 3xTF32; at dh 32 and 64, two launches on
+mma.sync. Every kernel computes ``mlstm_scan_plain``'s
+function.
 """
 from __future__ import annotations
 
@@ -36,6 +39,9 @@ from repro_torch.utils.time_loops import steps
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128, 256, 512)   # the kernel's instantiations
 CHUNK = 64        # steps per chunk of the chunkwise path (csrc: CL)
+SM90_HEAD_DIMS = (128, 256, 512)   # the Hopper kernel's: a cluster of dh/64
+# K4's kernels, by the code the C entry takes
+KERNELS = {"steps": 0, "mma_sync": 1, "sm90": 2}
 
 
 def _empty_state(B, H, dh, device):
@@ -122,6 +128,21 @@ def uses_chunks(S: int) -> bool:
     return S >= CHUNK
 
 
+def kernel_for(S: int, dh: int) -> str:
+    """The kernel that runs K4 for S steps at head dim dh: ``"steps"``
+    below one chunk, else ``"sm90"`` (one cluster launch, dh 128 up: the
+    served xlstm-350m's 512) or ``"mma_sync"`` (two mma.sync launches, dh
+    32 and 64, where a CTA's 64 rows of C would be the whole head). A
+    fixed choice: the C entry runs exactly this kernel or fails."""
+    if S < 1:
+        raise ValueError("mlstm_scan: at least one step expected")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"mlstm_scan: head dim {dh} not in {HEAD_DIMS}")
+    if not uses_chunks(S):
+        return "steps"
+    return "sm90" if dh in SM90_HEAD_DIMS else "mma_sync"
+
+
 def _check(q, k, v, ig, fg, state) -> None:
     tensors = (q, k, v, ig, fg) + tuple(state or ())
     if not (q.is_cuda and all(t.device == q.device for t in tensors)):
@@ -146,6 +167,8 @@ def _check(q, k, v, ig, fg, state) -> None:
         raise ValueError(f"mlstm_scan: head dim {dh} not in {HEAD_DIMS}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("mlstm_scan: inputs must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("mlstm_scan: q, k and v must be 16-byte aligned")
 
 
 def mlstm_scan(q, k, v, ig, fg, state=None):
@@ -162,18 +185,19 @@ def mlstm_scan(q, k, v, ig, fg, state=None):
     C = torch.empty((B, H, dh, dh), dtype=torch.float32, device=q.device)
     n = torch.empty((B, H, dh), dtype=torch.float32, device=q.device)
     m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    kernel = kernel_for(S, dh)
     scratch = ()
-    if uses_chunks(S):
+    if kernel == "mma_sync":
         nc = -(-S // CHUNK)
         # P^T of every chunk and its gate vectors (a, row sums of P, w, g)
         scratch = (torch.empty(B * H * nc, CHUNK, CHUNK, device=q.device),
                    torch.empty(B * H * nc, 4, CHUNK, device=q.device))
     ptr = lambda ts, k: [t.data_ptr() for t in ts] if ts else [None] * k
-    fn = _build.entry("mlstm_scan", "mlstm_scan_fwd", 14, 5, n_floats=0)
+    fn = _build.entry("mlstm_scan", "mlstm_scan_fwd", 14, 6, n_floats=0)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ig.data_ptr(),
              fg.data_ptr(), *ptr(state, 3), h.data_ptr(), C.data_ptr(),
-             n.data_ptr(), m.data_ptr(), *ptr(scratch, 2), B, S, H, dh,
-             int(state is not None),
+             n.data_ptr(), m.data_ptr(), *ptr(scratch, 2), KERNELS[kernel],
+             B, S, H, dh, int(state is not None),
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "mlstm_scan")
     _build.count_launch(mlstm_scan)

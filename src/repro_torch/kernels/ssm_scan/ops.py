@@ -14,12 +14,15 @@ Without a state the scan starts from S = 0, as the Pallas kernel does. On
 a CUDA tensor ``ssm_scan`` launches the kernel of ``csrc/ssm_scan.cu``; on
 a CPU tensor it runs ``ssm_scan_plain``.
 
-The kernel has two paths, chosen by S (``uses_chunks``). Below one chunk
-(``CHUNK`` steps; decode is S = 1) it runs the recurrence step by step.
-From one chunk up it runs the chunked form of Mamba-2 (state-space
-duality), which ``ssm_scan_chunked_plain`` transcribes: within a chunk y
-is a masked matrix product, and only the state crosses chunks. Both paths
-compute ``ssm_scan_plain``'s function.
+The wrapper runs the kernel ``kernel_for`` names. Below one chunk
+(``CHUNK`` steps; decode is S = 1) the step kernel runs the recurrence
+step by step. From one chunk up the Hopper kernel runs the chunked form of
+Mamba-2 (state-space duality) in one cluster launch: within a chunk y is a
+masked matrix product, only the state crosses chunks, and the chunks are
+split into ``CLUSTER`` spans whose summaries compose into each span's
+start state, as ``ssm_scan_spans_plain`` transcribes (with ``ctas=1`` it
+is ``ssm_scan_chunked_plain``). Every kernel computes ``ssm_scan_plain``'s
+function.
 """
 from __future__ import annotations
 
@@ -32,6 +35,9 @@ from repro_torch.utils.time_loops import steps
 STATE_SIZES = (8, 16)       # N, the kernel's instantiations
 HEAD_DIMS = (16, 32, 48, 64)   # P: a multiple of 16 up to 64
 CHUNK = 32                  # steps per chunk of the chunked path (csrc: CL)
+CLUSTER = 8                 # CTAs (spans) a cluster at most (csrc: CLUSTER)
+# K5's kernels, by the code the C entry takes
+KERNELS = {"steps": 0, "sm90": 1}
 
 
 def ssm_scan_plain(x, dt, a_log, b, c, d_skip, state=None):
@@ -91,9 +97,78 @@ def ssm_scan_chunked_plain(x, dt, a_log, b, c, d_skip, state=None,
     return y.to(x.dtype), st
 
 
+def ssm_scan_spans_plain(x, dt, a_log, b, c, d_skip, state=None,
+                         chunk=CHUNK, ctas=CLUSTER):
+    """K5's Hopper kernel in plain PyTorch, as it computes: the chunks
+    split into ``min(ctas, nc)`` spans (span r takes chunks
+    [r nc / n, (r + 1) nc / n)); each span folded into a summary, its
+    increment Sspan <- dA Sspan + dS and its decay Aspan <- dA Aspan per
+    chunk (dA = exp(cum_L), dS = (wdt o X)^T B: the decay a product of
+    per-chunk decays); span r's start state composed from the earlier
+    spans' summaries, S <- A_j S + Sspan_j; then each span's y from its
+    start state, chunk by chunk, as ``ssm_scan_chunked_plain``."""
+    B, S, Hs, P = x.shape
+    N = b.shape[-1]
+    st = state if state is not None else \
+        torch.zeros(B, Hs, P, N, device=x.device)
+    nc = -(-S // chunk)
+    n = min(ctas, nc)
+    A = -torch.exp(a_log.float())
+    xf = x.float()
+    spans = [(r * nc // n, (r + 1) * nc // n) for r in range(n)]
+
+    def increment(i):
+        sl = slice(i * chunk, min(S, (i + 1) * chunk))
+        dtc = dt[:, sl].permute(0, 2, 1)                    # (B, Hs, L)
+        cum = torch.cumsum(dtc * A[:, None], -1)
+        cL = cum[..., -1]
+        wdt = torch.exp(cL[..., None] - cum) * dtc
+        X = xf[:, sl].permute(0, 2, 1, 3)
+        return torch.exp(cL), \
+            (X * wdt[..., None]).transpose(-1, -2) @ b[:, sl][:, None]
+
+    summaries = []
+    for lo, hi in spans:
+        a_span = torch.ones(B, Hs, device=x.device)
+        s_span = torch.zeros(B, Hs, P, N, device=x.device)
+        for i in range(lo, hi):
+            dA, dS = increment(i)
+            s_span = dA[..., None, None] * s_span + dS
+            a_span = a_span * dA
+        summaries.append((a_span, s_span))
+    y = torch.empty(B, S, Hs, P, dtype=x.dtype, device=x.device)
+    for r, (lo, hi) in enumerate(spans):
+        s0 = st
+        for a_span, s_span in summaries[:r]:
+            s0 = a_span[..., None, None] * s0 + s_span
+        sl = slice(lo * chunk, min(S, hi * chunk))
+        y[:, sl], fin = ssm_scan_chunked_plain(
+            x[:, sl], dt[:, sl], a_log, b[:, sl], c[:, sl], d_skip, s0,
+            chunk=chunk)
+    return y, fin
+
+
 def uses_chunks(S: int) -> bool:
     """Whether the kernel takes its chunked path for S steps."""
     return S >= CHUNK
+
+
+def kernel_for(S: int, x_dtype, P: int, N: int) -> str:
+    """The kernel that runs K5 for S steps of x in ``x_dtype`` at head dim
+    P and state size N: ``"steps"`` below one chunk, else ``"sm90"`` (the
+    Hopper kernel covers every P in ``HEAD_DIMS``, N in ``STATE_SIZES``
+    and both x types). A fixed choice: the C entry runs exactly this
+    kernel or fails."""
+    if S < 1:
+        raise ValueError("ssm_scan: at least one step expected")
+    if x_dtype not in _build.DTYPES:
+        raise ValueError(f"ssm_scan: x dtype {x_dtype}; the kernels take "
+                         f"float32 or bfloat16")
+    if P not in HEAD_DIMS:
+        raise ValueError(f"ssm_scan: head dim {P} not in {HEAD_DIMS}")
+    if N not in STATE_SIZES:
+        raise ValueError(f"ssm_scan: state size {N} not in {STATE_SIZES}")
+    return "sm90" if uses_chunks(S) else "steps"
 
 
 def _check(x, dt, a_log, b, c, d_skip, state) -> None:
@@ -147,18 +222,11 @@ def ssm_scan(x, dt, a_log, b, c, d_skip, state=None):
     N = b.shape[-1]
     y = torch.empty_like(x)
     final = torch.empty((B, Hs, P, N), dtype=torch.float32, device=x.device)
-    scratch = ()
-    if uses_chunks(S):
-        nc = -(-S // CHUNK)
-        # each chunk's state increment (then its start state) and decay
-        scratch = (torch.empty(B, Hs, nc, P, N, device=x.device),
-                   torch.empty(B, Hs, nc, device=x.device))
-    fn = _build.entry("ssm_scan", "ssm_scan_fwd", 11, 8, n_floats=0)
+    fn = _build.entry("ssm_scan", "ssm_scan_fwd", 9, 9, n_floats=0)
     err = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
              c.data_ptr(), d_skip.data_ptr(),
              state.data_ptr() if state is not None else None, y.data_ptr(),
-             final.data_ptr(), *([t.data_ptr() for t in scratch]
-                                 or [None, None]),
+             final.data_ptr(), KERNELS[kernel_for(S, x.dtype, P, N)],
              _build.DTYPES[x.dtype], _build.DTYPES[a_log.dtype], B, S, Hs,
              P, N, int(state is not None),
              torch.cuda.current_stream(x.device).cuda_stream)

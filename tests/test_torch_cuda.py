@@ -561,15 +561,6 @@ def test_ssm_wrapper_refuses_what_the_kernel_does_not_take(gen):
         k5.ssm_scan(x, *args[1:])
 
 
-def _kernel_names(fn):
-    """The CUDA kernels ``fn()`` launches, by torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return " ".join(e.key for e in prof.key_averages())
-
-
 def _mlstm_state(gen, kind, B, H, dh):
     if kind == "omitted":
         return None
@@ -628,17 +619,73 @@ def test_mlstm_kernel_gates_at_the_edges(gen, gates):
         assert _row_rel(a, b) <= 1e-4, name
 
 
+def _device_kernels(fn):
+    """The names of the CUDA kernels ``fn()`` runs on the device, one
+    entry a launch, by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def _device_launches(source, fn):
+    """The device launches ``fn()`` makes through ``csrc/<source>.cu``, by
+    kernel code (the wrapper's ``KERNELS``), from the library's own counts:
+    exact, where torch.profiler's trace has come back empty in long runs
+    on the card."""
+    import ctypes
+    from repro_torch.kernels import _build
+    count = getattr(_build.library(source), f"{source}_device_launches")
+    count.restype, count.argtypes = ctypes.c_longlong, [ctypes.c_int]
+    codes = range({"mlstm_scan": len(k4.KERNELS),
+                   "ssm_scan": len(k5.KERNELS)}[source])
+    before = [count(k) for k in codes]
+    out = fn()
+    torch.cuda.synchronize()
+    return [count(k) - b for k, b in zip(codes, before)], out
+
+
+K4_KERNELS = {"steps": ["mlstm_scan_kernel"], "sm90": ["mlstm_cluster"],
+              "mma_sync": ["mlstm_chunk_prep", "mlstm_chunk_state"]}
+K5_KERNELS = {"steps": ["ssm_scan_kernel"], "sm90": ["ssd_cluster"]}
+
+
 def test_mlstm_dispatch_at_the_chunk_length(gen):
-    """Below ``CHUNK`` steps the step kernel runs, from it up the two
-    chunkwise kernels; the library's chunk is the wrapper's."""
+    """Below ``CHUNK`` steps the step kernel runs, from it up the Hopper
+    kernel (dh 128 up) or the two mma.sync chunkwise kernels (dh 64), as
+    ``kernel_for`` says; the library's chunk is the wrapper's."""
     from repro_torch.kernels import _build
     assert _build.library("mlstm_scan").mlstm_scan_chunk() == k4.CHUNK
-    for S, chunked in [(1, False), (k4.CHUNK - 1, False), (k4.CHUNK, True)]:
-        args = _scan_inputs(gen, 1, S, 2, 64)
-        names = _kernel_names(lambda: k4.mlstm_scan(*args))
-        assert ("mlstm_chunk_state" in names) == chunked, names
-        assert ("mlstm_scan_kernel" in names) == (not chunked), names
-        assert k4.uses_chunks(S) == chunked
+    for dh in (64, 512):
+        for S in (1, k4.CHUNK - 1, k4.CHUNK):
+            args = _scan_inputs(gen, 1, S, 2, dh)
+            names = _device_kernels(lambda: k4.mlstm_scan(*args))
+            want = K4_KERNELS[k4.kernel_for(S, dh)]
+            assert len(names) == len(want), names
+            assert all(w in n for w, n in zip(want, names)), names
+            assert k4.uses_chunks(S) == (S >= k4.CHUNK)
+
+
+@pytest.mark.parametrize("dh", [128, 256, 512])
+@pytest.mark.parametrize("S", [k4.CHUNK, k4.CHUNK + 1, 3 * k4.CHUNK + 5,
+                               1024])
+def test_mlstm_prefill_is_one_launch(gen, dh, S):
+    """A prefill call (S >= CHUNK) at dh 128 up is one device launch, the
+    Hopper kernel's cluster launch (counted by the library; the dispatch
+    test above reads the same off torch.profiler), and its outputs hold
+    to the plain version; xlstm-350m's dh 512 among them."""
+    B, H = 2, 2
+    st = _mlstm_state(gen, "random", B, H, dh)
+    args = _scan_inputs(gen, B, S, H, dh)
+    assert k4.kernel_for(S, dh) == "sm90"
+    made, (h, fin) = _device_launches(
+        "mlstm_scan", lambda: k4.mlstm_scan(*args, st))
+    assert made == [0, 0, 1], made
+    rh, rfin = k4.mlstm_scan_plain(*args, st)
+    for name, a, b in zip("hCnm", (h,) + fin, (rh,) + rfin):
+        assert _row_rel(a, b) <= 1e-4, name
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -674,18 +721,41 @@ def test_ssm_kernel_decay_underflow(gen):
 
 
 def test_ssm_dispatch_at_the_chunk_length(gen):
-    """Below ``CHUNK`` steps the step kernel runs, from it up the three
-    chunked kernels; the library's chunk is the wrapper's."""
+    """Below ``CHUNK`` steps the step kernel runs, from it up the Hopper
+    kernel, as ``kernel_for`` says; the library's chunk is the
+    wrapper's."""
     from repro_torch.kernels import _build
     assert _build.library("ssm_scan").ssm_scan_chunk() == k5.CHUNK
     f32 = torch.float32
-    for S, chunked in [(1, False), (k5.CHUNK - 1, False), (k5.CHUNK, True)]:
+    for S in (1, k5.CHUNK - 1, k5.CHUNK):
         args = _ssm_inputs(gen, 1, S, 2, 32, 16, f32, f32)
-        names = _kernel_names(lambda: k5.ssm_scan(*args))
-        for kernel in ("ssd_chunk_state", "ssd_state_pass", "ssd_chunk_out"):
-            assert (kernel in names) == chunked, names
-        assert ("ssm_scan_kernel" in names) == (not chunked), names
-        assert k5.uses_chunks(S) == chunked
+        names = _device_kernels(lambda: k5.ssm_scan(*args))
+        want = K5_KERNELS[k5.kernel_for(S, f32, 32, 16)]
+        assert len(names) == len(want), names
+        assert all(w in n for w, n in zip(want, names)), names
+        assert k5.uses_chunks(S) == (S >= k5.CHUNK)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("S", [k5.CHUNK, k5.CHUNK + 1, 3 * k5.CHUNK + 5,
+                               1024])
+def test_ssm_prefill_is_one_launch(gen, dtype, S):
+    """A prefill call (S >= CHUNK) is one device launch, the Hopper
+    kernel's cluster launch (no scratch, no state pass; counted by the
+    library, as torch.profiler reads it in the dispatch test above), at
+    hymba-1.5b's head shape (P 64, N 16), and its outputs hold to the
+    plain version."""
+    dt = getattr(torch, dtype)
+    args = _ssm_inputs(gen, 2, S, 3, 64, 16, dt, dt)
+    _, state = k5.ssm_scan_plain(*_ssm_inputs(gen, 2, 64, 3, 64, 16, dt,
+                                              dt))
+    assert k5.kernel_for(S, dt, 64, 16) == "sm90"
+    made, (y, fin) = _device_launches(
+        "ssm_scan", lambda: k5.ssm_scan(*args, state))
+    assert made == [0, 1], made
+    ry, rfin = k5.ssm_scan_plain(*args, state)
+    tol = 2.0 ** -6 if dt == torch.bfloat16 else 1e-4
+    assert _row_rel(y, ry) <= tol and _row_rel(fin, rfin) <= 1e-4
 
 
 def _moe_layer(gen, cfg):

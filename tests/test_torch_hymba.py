@@ -340,3 +340,48 @@ def test_chunked_plain_matches_step_plain_and_model(S, state, dt_scale):
         assert _err(a, s_) < TOL
         assert _err(a, r) < TOL
     assert k5.uses_chunks(S) == (S >= L)
+
+
+SPAN = k5.CLUSTER * L   # steps a cluster's spans hold at one chunk each
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("S,ctas", [
+    (2 * SPAN, k5.CLUSTER),          # every span two whole chunks
+    (2 * SPAN + 13, k5.CLUSTER),     # ragged: spans of 2 and 3 chunks
+    (3 * L + 5, k5.CLUSTER),         # below one span a CTA: 4 spans
+    (L + 1, k5.CLUSTER),             # two spans, the second of 1 step
+    (5 * L + 7, 3)])                 # spans of 2, 2 and 2 chunks
+def test_spans_plain_matches_plain_and_reference(S, ctas, state):
+    """The Hopper kernel's arithmetic (``ssm_scan_spans_plain``: the chunks
+    split into spans, each span's summary an increment and a product of
+    per-chunk decays, each span's start state composed from the earlier
+    summaries) against the step loop and the JAX package: from the zero
+    state against ``ssm_scan_bhspn`` in interpret mode and
+    ``ssm_scan_ref``, both plus the D skip; from a random state against
+    the model's ``_ssm_step`` under ``jax.lax.scan``."""
+    B, Hs, P, N = 1, 2, 16, 8
+    x, dt, a_log, b, c, d_skip = _scan_inputs(15, B, S, Hs, P, N)
+    st = np.random.default_rng(16).standard_normal(
+        (B, Hs, P, N)).astype(np.float32) if state else None
+    args = _torch(x, dt, a_log, b, c, d_skip)
+    ts = torch.from_numpy(st) if state else None
+    y, fin = k5.ssm_scan_spans_plain(*args, ts, ctas=ctas)
+    sy, sfin = k5.ssm_scan_plain(*args, ts)
+    assert _err(y, sy) < TOL and _err(fin, sfin) < TOL
+    if state:
+        ry, rfin = _model_scan(x, dt, a_log, b, c, d_skip, st)
+        assert _err(y, ry) < TOL and _err(fin, rfin) < TOL
+        return
+    pallas = pallas_ssm(*(jnp.asarray(a) for a in (x, dt, a_log, b, c,
+                                                   d_skip)))
+    assert _err(y, pallas) < TOL
+    decay = np.exp(dt * -np.exp(a_log))
+    fold = lambda a: a.transpose(0, 2, 1, 3).reshape(B * Hs, S, -1)
+    gate = lambda a: a.transpose(0, 2, 1).reshape(B * Hs, S, 1)
+    heads = lambda a: np.broadcast_to(a[:, None], (B, Hs, S, N)).reshape(
+        B * Hs, S, N)
+    ref = ssm_scan_ref(*(jnp.asarray(a) for a in (
+        fold(x), gate(decay), gate(dt), heads(b), heads(c))))
+    ref = np.asarray(ref).reshape(B, Hs, S, P).transpose(0, 2, 1, 3)
+    assert _err(y, ref + d_skip[None, None, :, None] * x) < TOL

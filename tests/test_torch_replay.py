@@ -20,8 +20,9 @@ from repro_torch.server import (ServerConfig, ShardedWallClockExecutor,
                                 hash_shard, make_server)
 from repro_torch.workloads.scenarios import make_scenario
 
-# the chip_smoke.py replay's scenario: 6 functions over 2 tenants, 34
-# arrivals in 10 minutes of trace
+# the chip_smoke.py replay's scenario over 10 minutes of trace: 6
+# functions over 2 tenants, 34 arrivals (the script replays 5 minutes,
+# 20 arrivals, of the same scenario)
 REPLAY = dict(n_fns=7, minutes=10, seed=24, mean_rpm=3.0)
 
 
