@@ -245,8 +245,8 @@ XLSTM_LAYERS = 8
 POORLY_CONDITIONED = ("hybrid", "moe")
 
 
-# chatglm3-6b's attention heads: G = 16 query heads per kv head, above
-# the 8 a launch of K2 and K3
+# chatglm3-6b's attention heads: G = 16 query heads per kv head, all 16
+# rows of decode_sm90's m-tile
 GLM_HEADS = types.SimpleNamespace(n_heads=32, n_kv_heads=2, head_dim=128)
 # deepseek-coder-33b's (G 7) and qwen1.5-32b's (G 1, 40 kv heads) decode
 # heads: at 66.7 and 70.4 GB of bf16 weights no serving run of either
@@ -520,27 +520,56 @@ def n_valid_slots(attn, pos, S, ring, window, dev) -> int:
     return int(valid.sum())
 
 
+def decode_launches(dec, call):
+    """``call()``'s device launches of the decode library by kernel code
+    (``dec.KERNELS``), from the library's own counts, and its result."""
+    before = dec.device_launches()
+    o = call()
+    torch.cuda.synchronize()
+    return [a - b for a, b in zip(dec.device_launches(), before)], o
+
+
+def check_decode_launch(dec, name, plan, made, kernel="sm90"):
+    """A K2/K3 call runs ``kernel`` (decode_sm90 at every served shape),
+    as many device launches as its plan says (one for G <= 16 on
+    decode_sm90), and no other kernel."""
+    want = [0] * len(dec.KERNELS)
+    want[dec.KERNELS[kernel]] = plan["launches"]
+    if plan["kernel"] != kernel or made != want:
+        raise AssertionError(f"{name}: kernel {plan['kernel']} (want "
+                             f"{kernel}), device launches {made} (want "
+                             f"{want}) at {plan}")
+
+
 def check_decode(dec, attn, cfg, dev, cases=DECODE_CASES,
-                 quant_cases=QUANT_CASES, model="qwen3-1.7b", S=SERVE_SEQ):
+                 quant_cases=QUANT_CASES, model="qwen3-1.7b", S=SERVE_SEQ,
+                 dtype=torch.bfloat16):
     """K2 on a full cache (query past its end, as serving decodes) and on
     a ring cache with pos > S (``cases``: (label, pos, ring, window)
     each) of S slots; K3 on the int8 cache at ``quant_cases`` (the same
-    form), held against its plain version and against the transcription
-    of its arithmetic. Returns the first case's numbers of each."""
+    form), held against its plain version, against the transcription of
+    its arithmetic and, on decode_sm90, against that of its split and
+    merge order. q (and K2's cache) are ``dtype``: bf16, as served, must
+    run decode_sm90 in the launches its plan says (``kernel`` "sm90"; one
+    launch for G <= 16); float32 must run decode_cluster, PR 15-17's
+    kernel, which the served shapes no longer reach. Returns the first
+    case's numbers of each."""
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     B = SERVE_BATCH
+    kernel = "sm90" if dtype == torch.bfloat16 else "cluster"
     g = torch.Generator(dev).manual_seed(2)
-    r = lambda *s: torch.randn(*s, generator=g, device=dev,
-                               dtype=torch.bfloat16)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev, dtype=dtype)
     mk = lambda: (r(B, 1, H, dh), r(B, S, KV, dh), r(B, S, KV, dh))
     out = {}
     for label, pos, ring, window in cases:
         q, ck, cv = mk()
+        plan = dec.launch_plan(q.dtype, ck.dtype, B, S, H, KV, dh, dev)
+        made, o = decode_launches(dec, lambda: dec.decode_attention(
+            q, ck, cv, pos, window=window, ring=ring))
+        check_decode_launch(dec, "K2", plan, made, kernel)
         err = check_kernel(
-            "K2", dec.decode_attention(q, ck, cv, pos, window=window,
-                                       ring=ring),
-            dec.decode_attention_plain(q, ck, cv, pos, window=window,
-                                       ring=ring), cache=label)
+            "K2", o, dec.decode_attention_plain(q, ck, cv, pos, window=window,
+                                                ring=ring), cache=label)
         sets = [mk() for _ in range(n_sets(nbytes(q, ck, cv)))]
         run = lambda q, k, v: dec.decode_attention(q, k, v, pos,
                                                    window=window, ring=ring)
@@ -562,10 +591,10 @@ def check_decode(dec, attn, cfg, dev, cases=DECODE_CASES,
         m = dict(**err, **timing(kern, plain, lib, b_ms, b_by))
         emit(phase="kernel", name="K2 decode_attention", model=model,
              cache=label, B=B, S=S, H=H, KV=KV, dh=dh, pos=pos,
-             window=window, valid_slots=n_valid,
-             cluster_plan=dec.cluster_plan(B, S, KV,
-                                           dec._sm_count(dev.index)),
-             host_ms=kern_host, **m)
+             window=window, valid_slots=n_valid, kernel=plan["kernel"],
+             launches_per_call=plan["launches"],
+             device_launches_per_call=made, plan=plan, host_ms=kern_host,
+             **m)
         out.setdefault("K2", m)
 
     def mk8():
@@ -576,15 +605,28 @@ def check_decode(dec, attn, cfg, dev, cases=DECODE_CASES,
     for label, pos, ring, window in quant_cases:
         kw = dict(window=window, ring=ring)
         args = mk8()
-        o = dec.decode_attention_quant(*args, pos, **kw)
+        plan = dec.launch_plan(args[0].dtype, torch.int8, B, S, H, KV, dh,
+                               dev)
+        made, o = decode_launches(
+            dec, lambda: dec.decode_attention_quant(*args, pos, **kw))
+        check_decode_launch(dec, "K3", plan, made, kernel)
         # the plain version dequantizes in f32 and keeps p in f32; the
-        # kernel rounds p times the v scale to bf16, as the transcription
-        # does
+        # kernel rounds p times the v scale to bf16, as the transcriptions
+        # do
         err = check_kernel("K3", o, dec.decode_attention_quant_plain(
             *args, pos, **kw), cache=label)
         as_kernel = check_kernel("K3 vs as_kernel", o,
                                  dec.decode_attention_quant_as_kernel(
                                      *args, pos, **kw), cache=label)
+        q, k8, ks, v8, vs = args
+        split = {"max_row_rel_err": None}
+        if kernel == "sm90":
+            split = check_kernel("K3 vs decode_sm90_plain", o,
+                                 dec.decode_sm90_plain(
+                                     q, k8, v8, pos, n_ctas=plan["n_ctas"],
+                                     chunk=plan["chunk"],
+                                     stages=plan["stages"], k_scale=ks,
+                                     v_scale=vs, **kw), cache=label)
         sets = [mk8() for _ in range(n_sets(nbytes(*args)))]
         run = lambda *a: dec.decode_attention_quant(*a, pos, **kw)
         kern, kern_host = device_ms(run, sets), host_ms(run, sets)
@@ -599,11 +641,11 @@ def check_decode(dec, attn, cfg, dev, cases=DECODE_CASES,
         m = dict(**err, **timing(kern, plain, None, b_ms, b_by))
         emit(phase="kernel", name="K3 decode_attention_quant", model=model,
              cache=f"{label} int8", B=B, S=S, H=H, KV=KV, dh=dh, pos=pos,
-             window=window, valid_slots=n_valid,
-             launches_per_call=dec.sub_groups(H // KV),
-             cluster_plan=dec.quant_plan(B, S, KV, dec._sm_count(dev.index)),
-             host_ms=kern_host,
-             row_rel_err_to_as_kernel=as_kernel["max_row_rel_err"], **m)
+             window=window, valid_slots=n_valid, kernel=plan["kernel"],
+             launches_per_call=plan["launches"],
+             device_launches_per_call=made, plan=plan, host_ms=kern_host,
+             row_rel_err_to_as_kernel=as_kernel["max_row_rel_err"],
+             row_rel_err_to_transcription=split["max_row_rel_err"], **m)
         out.setdefault("K3", m)
     return out
 
@@ -2558,6 +2600,9 @@ def main() -> int:
     hcfg = get_config("hymba-1.5b")  # bf16, full width, all 32 layers
     k1 = check_flash(fl, cfg, dev)
     k23 = check_decode(dec, attn, cfg, dev)
+    # float32 q at qwen's shape: decode_cluster, off the serving path
+    check_decode(dec, attn, cfg, dev, QUANT_CASES, QUANT_CASES,
+                 dtype=torch.float32)
     k4m = check_mlstm(k4, xcfg, dev)
     k5m = check_ssm(k5, hcfg, dev)
     # hymba's attention: prefill under its 1024 window, decode on its
@@ -2570,7 +2615,7 @@ def main() -> int:
                  model="hymba-1.5b")
     # K2 and K3 at chatglm3-6b's decode heads (src/repro/configs/
     # chatglm3_6b.py: 32 query heads over 2 kv heads of dh 128, G 16),
-    # which the wrappers run as two launches of 8 query heads per kv head
+    # one launch of decode_sm90 a call
     check_decode(dec, attn, GLM_HEADS, dev, QUANT_CASES, QUANT_CASES,
                  model="chatglm3-6b")
     # granite-moe-3b-a800m: prefill (24 heads over 8 of dh 64, causal) and

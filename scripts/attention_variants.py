@@ -2,28 +2,35 @@
 attention over an int8 cache) of the PyTorch/CUDA port against variants
 of their own sources, on one NVIDIA GPU.
 
-    python3 scripts/attention_variants.py [--k1]
+    python3 scripts/attention_variants.py [--k1 | --k23 | --sass]
 
 Each variant is the committed source (``src/repro_torch/csrc``) with one
 textual change, built by nvcc beside it into ``build/variants`` and timed
-on the same inputs in the same process as the committed kernel and (K1,
-K2) as ``scaled_dot_product_attention``, at the serving shapes of
-qwen3-1.7b and hymba-1.5b (``chip_smoke.py``'s kernel phase; K1 also at
-llava-next-mistral-7b's S 4096 and whisper-large-v3's 1500 x 1500
-encoder); K3 also at B 8 (B*KV = 64 rows) under K2's launch plan beside
-its own. K2 and K3 are one source, so K2's variants are K3's too. K1's
-variants are of its Hopper kernel (bf16 at dh 64 and 128), among them
-diagnostics that drop its softmax, its products or its loads; the
-committed K1 is also traced once by torch.profiler at each shape. It shows
-what each design choice is worth; it also times empty kernel launches
-(plain, and in a cluster of 8 CTAs), the floor under any one-launch
-kernel. Prints the variants that spill, one JSON line per shape and the
-card's name and power limit; ``--k1`` builds and times K1 alone. Needs
-CUDA and nvcc.
+on the same inputs in the same process as the committed kernel, in turns.
+K1's variants are of its Hopper kernel (bf16 at dh 64 and 128), among them
+diagnostics that drop its softmax, its products or its loads, timed
+against ``scaled_dot_product_attention`` at the serving shapes of
+qwen3-1.7b, hymba-1.5b, llava-next-mistral-7b (S 4096) and
+whisper-large-v3's encoder; the committed K1 is also traced once by
+torch.profiler at each shape. K2 and K3 are one source: its Hopper kernel
+(``decode_sm90``) is timed against its older ``decode_cluster`` (the same
+library, through the C entry's kernel code) and SDPA at qwen3-1.7b's,
+hymba-1.5b's, llava's 4096-slot ring and chatglm3-6b's decode shapes
+(``chip_smoke.py``'s), with diagnostics that drop its loads, its tile
+pass or its cluster merge, other cluster sizes, and a timeline variant
+whose every CTA writes %globaltimer at its phases; K3 on both kernels at
+qwen3-1.7b's. It also times empty launches (plain, and in clusters of 8
+and 16 CTAs), the floor under any one-launch kernel. Prints the variants
+that spill, one JSON line per shape and the card's name and power limit;
+``--k1`` builds and times K1 alone, ``--k23`` K2 and K3 alone; ``--sass``
+prints, for each ``decode_sm90`` instance of the committed library, its
+static SASS instructions and those of its tile loop (``cuobjdump``).
+Needs CUDA and nvcc.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import re
 import subprocess
@@ -120,94 +127,64 @@ K1_VARIANTS = {
                         "pack_bf16(acc[4 * j + 2 * r] * (1.f / lr), "
                         "acc[4 * j + 2 * r + 1] * (1.f / lr))")],
 }
-LAUNCH = "cfg.dynamicSmemBytes = smem_for(n_stages);"
-TILE_PASS = "      pass.tile(kt, kt + TS * RB, mask, scale_log2, qsm, pw, lane);"
-K2_VARIANTS = {
-    # 8 KB more shared memory a CTA: 2 CTAs an SM at qwen's shapes, not 3
-    "2_ctas_per_sm": [(LAUNCH, LAUNCH.replace(";", " + 8192;"))],
-    # diagnostics (wrong results): without the tile pass, without loads
-    "no_tile_pass": [(TILE_PASS, "      (void)kt;")],
-    "no_loads": [("    if (mask == 0) return;  // no valid slot: nothing read",
-                  "    return;")],
-}
-Q8_PV = """#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const unsigned char* r0 = vt + (16 * kk + 2 * t) * RB + 4 * g;
-#pragma unroll
-      for (int blk = 0; blk < DH / 32; ++blk) {
-        const unsigned char* p = r0 + 32 * blk;
-        const uint32_t w0 = *reinterpret_cast<const uint32_t*>(p) ^ I8_BIAS;
-        const uint32_t w1 =
-            *reinterpret_cast<const uint32_t*>(p + RB) ^ I8_BIAS;
-        const uint32_t w8 =
-            *reinterpret_cast<const uint32_t*>(p + 8 * RB) ^ I8_BIAS;
-        const uint32_t w9 =
-            *reinterpret_cast<const uint32_t*>(p + 9 * RB) ^ I8_BIAS;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          mma_bf16_upper(acc[4 * blk + j], pa[kk][0], pa[kk][1],
-                         bf16x2_exact(i8_at(w0, j), i8_at(w1, j)),
-                         bf16x2_exact(i8_at(w8, j), i8_at(w9, j)));
-      }
-    }
-"""
-# the V tile converted once into a bf16 tile behind the scales (K2's
-# layout: dh >= 128 swizzled, else padded by 16 bytes), then P.V by
-# ldmatrix as K2's MmaPass reads its own
-Q8_PV_LDMATRIX = """    constexpr bool VSWZ = DH >= 128;
-    constexpr int VRB = DH * 2 + (VSWZ ? 0 : 16);
-    unsigned char* vb = const_cast<unsigned char*>(vt) + TS * RB +
-                        2 * TS * (int)sizeof(float);
-    auto vat = [](int r, int c) {
-      return r * VRB + (VSWZ ? swz<DH / 8>(r, c) : c) * 16;
-    };
-    for (int c = lane; c < TS * (DH / 16); c += 32) {
-      const int r = c / (DH / 16), cc = c % (DH / 16);
-      const uint4 w = *reinterpret_cast<const uint4*>(vt + r * RB + cc * 16);
-      const uint32_t ws[4] = {w.x ^ I8_BIAS, w.y ^ I8_BIAS, w.z ^ I8_BIAS,
-                              w.w ^ I8_BIAS};
-      uint32_t h[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        h[2 * i] = bf16x2_exact(i8_at(ws[i], 0), i8_at(ws[i], 1));
-        h[2 * i + 1] = bf16x2_exact(i8_at(ws[i], 2), i8_at(ws[i], 3));
-      }
-      *reinterpret_cast<uint4*>(vb + vat(r, 2 * cc)) =
-          make_uint4(h[0], h[1], h[2], h[3]);
-      *reinterpret_cast<uint4*>(vb + vat(r, 2 * cc + 1)) =
-          make_uint4(h[4], h[5], h[6], h[7]);
-    }
-    __syncwarp();
-    const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int v_col = (lane >> 4) * 8;
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
-#pragma unroll
-      for (int dp = 0; dp < ND / 2; ++dp) {
-        uint32_t bb[4];
-        ldsm_x4_t(bb, smem_u32(vb + vat(kk * 16 + v_row, 2 * dp + v_col / 8)));
-        mma_bf16_upper(acc[2 * dp], pa[kk][0], pa[kk][1], bb[0], bb[1]);
-        mma_bf16_upper(acc[2 * dp + 1], pa[kk][0], pa[kk][1], bb[2], bb[3]);
-      }
-"""
-K3_VARIANTS = {
-    # P.V from a bf16 copy of the V tile, read by ldmatrix as K2 reads its
-    # own, in place of fragments built from 32-bit loads of the int8 tile
-    "v_ldmatrix": [
-        ("      2 * TS * RB + (Q8 ? 2 * TS * (int)sizeof(float) : 0);",
-         "      2 * TS * RB + (Q8 ? 2 * TS * (int)sizeof(float) : 0) +\n"
-         "      (Q8 && MMA ? TS * (DH * 2 + (DH >= 128 ? 0 : 16)) : 0);"),
-        (Q8_PV, Q8_PV_LDMATRIX),
-        ("      const int d = 32 * (j / 4) + 8 * t + (j % 4);\n"
-         "      wp[g * PS + d] = acc[j][0];\n"
-         "      wp[g * PS + d + 4] = acc[j][1];",
-         "      const int d = 8 * j + 2 * t;\n"
-         "      wp[g * PS + d] = acc[j][0];\n"
-         "      wp[g * PS + d + 1] = acc[j][1];")],
-    # int8 rows unpadded: every fragment load meets bank conflicts
-    "unpadded": [("RB = DH * (int)sizeof(C) + (SWZ ? 0 : 16);",
-                  "RB = DH * (int)sizeof(C) + (SWZ || (Q8 && MMA) ? 0 : 16);")],
-}
+# K2/K3's Hopper kernel (decode_sm90), diagnostics (wrong results):
+# without the cache loads (the producer arrives on each stage's barrier
+# with no TMA), without the tile pass, without the cluster merge (no
+# reduce-scatter through distributed shared memory, no rank merge, no
+# store); K3's scale copies stay in all three
+SM90_NO_LOADS = [("        mbar_expect_tx(full(st), 2 * SH::TILE);",
+                  "        mbar_arrive(full(st));"),
+                 ("        for (int x = 0; x < SH::ROW / SH::BOX_W; ++x) {",
+                  "        for (int x = 0; x < 0; ++x) {")]
+SM90_NO_PASS = [("    pass.tile(base + ly.q, kt, kt + SH::TILE, scales + st * 2 * TS,"
+                 " mask,\n              scale_log2, lane);", "    (void)kt;")]
+SM90_NO_MERGE = [
+    ("    st_dsmem4(mapa(gat + 4 * (rank * share + i - dst * share), dst), a);",
+     "    (void)dst;"),
+    ("    st_dsmem2(mapa(gml + 8 * (rank * G + row), dst), M, L);",
+     "    (void)dst;"),
+    ("  const int i_end = min(G * DH, (rank + 1) * share);",
+     "  const int i_end = 0;")]
+# A timeline (wrong results): thread 0 of every CTA writes %globaltimer at
+# its start (0), once q is in shared memory (1), when its first tile has
+# landed (2), at the end of its pass (3), after the CTA merge (4), the
+# first cluster barrier (5), the reduce-scatter's stores (6), the second
+# cluster barrier (7) and its stores (8)
+TL = ("if (threadIdx.x == 0) tl_[(blockIdx.y * gridDim.x + blockIdx.x) * 9 + "
+      "{k}] = global_ns();")
+SM90_TIMELINE = [
+    ("  cluster_arrive_relaxed();\n  const int bkv",
+     "  cluster_arrive_relaxed();\n  " + TL.format(k=0) + "\n  const int bkv"),
+    ("    named_bar_sync(SM90_BAR, 32 * SM90_WARPS);\n  }\n\n  Pass pass;",
+     "    named_bar_sync(SM90_BAR, 32 * SM90_WARPS);\n  }\n  " +
+     TL.format(k=1) + "\n\n  Pass pass;"),
+    ("    mbar_wait(full(st), (kk / n_stages) & 1);\n",
+     "    mbar_wait(full(st), (kk / n_stages) & 1);\n    if (kk == 0) " +
+     TL.format(k=2) + "\n"),
+    ("  // the CTA's merge: each warp's",
+     "  " + TL.format(k=3) + "\n  // the CTA's merge: each warp's"),
+    ("  named_bar_sync(SM90_BAR, 32 * SM90_WARPS);\n\n  // the reduce-scatter",
+     "  named_bar_sync(SM90_BAR, 32 * SM90_WARPS);\n  " + TL.format(k=4) +
+     "\n\n  // the reduce-scatter"),
+    ("  cluster_wait();\n  const int share = ly.share;",
+     "  cluster_wait();\n  " + TL.format(k=5) +
+     "\n  const int share = ly.share;"),
+    ("  cluster_arrive();\n  cluster_wait();\n\n  // this rank's share",
+     "  " + TL.format(k=6) + "\n  cluster_arrive();\n  cluster_wait();\n  " +
+     TL.format(k=7) + "\n\n  // this rank's share"),
+    ("                   pack_bf16(a.z * inv, a.w * inv));\n  }\n}\n",
+     "                   pack_bf16(a.z * inv, a.w * inv));\n  }\n  " +
+     TL.format(k=8) + "\n}\n"),
+    ("namespace {\n\nusing namespace repro_sm90;",
+     "namespace {\n\nusing namespace repro_sm90;\n"
+     "__device__ unsigned long long tl_[65536 * 9];"),
+    ("extern \"C\" long long decode_attention_device_launches(",
+     "extern \"C\" int decode_timeline(void* dst, int n) {\n"
+     "  return cudaMemcpyFromSymbol(dst, tl_, n * 9 * 8);\n}\n\n"
+     "extern \"C\" long long decode_attention_device_launches(")]
+K23_VARIANTS = {"no_loads": SM90_NO_LOADS, "no_pass": SM90_NO_PASS,
+                "no_cluster_merge": SM90_NO_MERGE,
+                "timeline": SM90_TIMELINE}
 FLOOR = r"""
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -222,6 +199,8 @@ extern "C" int launch_empty(int gx, int gy, int smem, int cluster,
                        smem);
   cudaFuncSetAttribute(empty_cluster,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaFuncSetAttribute(empty_cluster,
+                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(gx, gy);
   cfg.blockDim = dim3(128);
@@ -317,42 +296,104 @@ def flash_runner(lib):
     return run
 
 
-def decode_runner(lib):
+def decode_runner(lib, kernel="sm90", plan=None):
+    """K2 through a library's C entry on the kernel named (``ops.KERNELS``),
+    under ``plan(B, S, KV, G, dh)`` -> (n_ctas, chunk, stages), by default
+    the wrapper's; the same sub-groups as the wrapper."""
     fn = lib.decode_attention_group_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 13
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 15
                    + [ctypes.c_float, ctypes.c_void_p])
+    code = dec.KERNELS[kernel]
 
     def run(q, k, v, pos, window, ring):
         B, _, H, dh = q.shape
         S, KV = k.shape[1], k.shape[2]
-        n, chunk = dec.cluster_plan(B, S, KV, dec._sm_count(q.device.index))
+        G = H // KV
+        g = G // dec.sub_groups(G, dec.SM90_MAX_GROUP if kernel == "sm90"
+                                else dec.MAX_GROUP)
+        if plan is not None:
+            n, chunk, stages = plan(B, S, KV, g, dh)
+        elif kernel == "sm90":
+            n, chunk, stages = dec._sm90_plan_on(q.device.index, B, S, KV,
+                                                 g, dh, 2)
+        else:
+            n, chunk = dec.cluster_plan(B, S, KV,
+                                        dec._sm_count(q.device.index))
+            stages = 0
         o = torch.empty_like(q)
-        _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        o.data_ptr(), 1, B, S, H, KV, H // KV, 0, dh, pos,
-                        window, int(ring), n, chunk, dh ** -0.5, stream()),
-                     "decode variant")
+        for q0 in range(0, G, g):
+            _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            o.data_ptr(), code, 1, B, S, KV * g, KV, G, q0,
+                            dh, pos, window, int(ring), n, chunk, stages,
+                            dh ** -0.5, stream()), "decode variant")
         return o
     return run
 
 
-def quant_runner(lib, plan=dec.quant_plan):
+def quant_runner(lib, kernel="sm90", plan=None):
+    """K3 through a library's C entry on the kernel named, under
+    ``plan(B, S, KV, G, dh)`` or the wrapper's plan for it."""
     fn = lib.decode_attention_q8_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 15
                    + [ctypes.c_float, ctypes.c_void_p])
+    code = dec.KERNELS[kernel]
 
     def run(q, k8, ks, v8, vs, pos, window, ring):
         B, _, H, dh = q.shape
         S, KV = k8.shape[1], k8.shape[2]
-        n, chunk = plan(B, S, KV, dec._sm_count(q.device.index))
+        G = H // KV
+        if kernel == "sm90":
+            g = G // dec.sub_groups(G, dec.SM90_MAX_GROUP)
+            n, chunk, stages = (plan or functools.partial(
+                dec._sm90_plan_on, q.device.index))(B, S, KV, g, dh,
+                                                    *(() if plan else (1,)))
+        else:
+            g = G // dec.sub_groups(G)
+            n, chunk = dec.quant_plan(B, S, KV,
+                                      dec._sm_count(q.device.index))
+            stages = 0
         o = torch.empty_like(q)
-        _build.check(fn(q.data_ptr(), k8.data_ptr(), ks.data_ptr(),
-                        v8.data_ptr(), vs.data_ptr(), o.data_ptr(), 1, B, S,
-                        H, KV, H // KV, 0, dh, pos, window, int(ring), n,
-                        chunk, dh ** -0.5, stream()), "quant variant")
+        for q0 in range(0, G, g):
+            _build.check(fn(q.data_ptr(), k8.data_ptr(), ks.data_ptr(),
+                            v8.data_ptr(), vs.data_ptr(), o.data_ptr(), code,
+                            1, B, S, KV * g, KV, G, q0, dh, pos, window,
+                            int(ring), n, chunk, stages, dh ** -0.5,
+                            stream()), "quant variant")
         return o
     return run
+
+
+def forced_plan(n_ctas, itemsize=2, max_stages=None):
+    """decode_sm90's plan with n_ctas CTAs a row (whole tiles a CTA, as
+    deep a ring as its tiles need, up to max_stages or the kernel's
+    deepest)."""
+    def plan(B, S, KV, G, dh):
+        tpc = -(-(-(-S // dec.SLOT_TILE)) // n_ctas)
+        cap = max_stages or dec.sm90_max_stages(dh, itemsize)
+        return (-(-S // (tpc * dec.SLOT_TILE)), tpc * dec.SLOT_TILE,
+                min(tpc, cap))
+    return plan
+
+
+def timeline(lib, run, sets, n_ctas):
+    """The timeline variant's phases over every CTA of one launch on
+    sets[1] (after one on sets[0]: the library loaded, sets[1]'s cache out
+    of L2), in µs from the launch's first CTA start: the median and the
+    largest CTA's time at each phase."""
+    run(*sets[0])
+    run(*sets[1])
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (9 * n_ctas))()
+    fn = lib.decode_timeline
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    _build.check(fn(ctypes.addressof(buf), n_ctas), "timeline")
+    t = torch.tensor(list(buf), dtype=torch.float64).view(n_ctas, 9)
+    t = (t - t[:, 0].min()) / 1e3
+    return dict(median_us=[round(float(x), 3) for x in t.median(0).values],
+                max_us=[round(float(x), 3) for x in t.max(0).values])
 
 
 def time_all(runs, sets, ref, library=None, lib_sets=None):
@@ -467,87 +508,187 @@ def k1_clocks(run, args, seconds=3.0):
     return stats
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("attention_variants: needs a CUDA card", file=sys.stderr)
-        return 1
-    only_k1 = sys.argv[1:] == ["--k1"]
-    smi = cs.nvidia_smi_line()
-    print(smi, flush=True)
-    k1 = {"k1": (ROOT / "src/repro_torch/csrc/flash_attention.cu")
-          .read_text(),
-          **{f"k1_{n}": t for n, t in variants(
-              "src/repro_torch/csrc/flash_attention.cu",
-              K1_VARIANTS).items()}}
-    libs = build(k1 if only_k1 else
-                 {**k1,
-                  "k2": (ROOT / "src/repro_torch/csrc/decode_attention.cu")
-                  .read_text(),
-                  **{f"k2_{n}": t for n, t in variants(
-                      "src/repro_torch/csrc/decode_attention.cu",
-                      K2_VARIANTS).items()},
-                  **{f"k3_{n}": t for n, t in variants(
-                      "src/repro_torch/csrc/decode_attention.cu",
-                      K3_VARIANTS).items()},
-                  "floor": FLOOR})
-    print(json.dumps({"spilling": {n: spills(n) for n in libs
-                                   if spills(n)}}), flush=True)
-    g = torch.Generator("cuda").manual_seed(1)
+# K2/K3's shapes: (model, B, S, H, KV, dh, window, ring, pos), those of
+# chip_smoke.py's kernel phase
+DECODE_SHAPES = [
+    ("qwen3-1.7b", 4, 1024, 16, 8, 128, 0, False, 1039),
+    ("hymba-1.5b", 4, 1024, 25, 5, 64, 1024, True, 1039),
+    ("llava-next-mistral-7b", 4, 4096, 32, 8, 128, 4096, True, 4111),
+    ("chatglm3-6b", 4, 1024, 32, 2, 128, 0, False, 1039),
+    ("deepseek-coder-33b", 4, 1024, 56, 8, 128, 0, False, 1039),
+    ("qwen1.5-32b", 4, 1024, 40, 40, 128, 0, False, 1039),
+]
+
+
+def time_k23(libs, g):
+    """K2 on decode_sm90 (committed, its diagnostics, other cluster sizes)
+    against decode_cluster and SDPA, in turns, with the timeline; K3 on
+    both kernels at qwen3-1.7b's shape."""
     bf = torch.bfloat16
-    time_k1(libs, g)
-    print(json.dumps({"k1_host_us": k1_host_us()}), flush=True)
-    if only_k1:
-        print(smi, flush=True)
-        return 0
-    for model, H, KV, dh, window in [("qwen3-1.7b", 16, 8, 128, 0),
-                                     ("hymba-1.5b", 25, 5, 64, 1024)]:
-        B, S = cs.SERVE_BATCH, cs.SERVE_SEQ
-        pos, ring = S + cs.DECODE_STEPS - 1, window > 0
+    for model, B, S, H, KV, dh, window, ring, pos in DECODE_SHAPES:
         r = lambda *s: torch.randn(*s, generator=g, device="cuda", dtype=bf)
         mk = lambda: (r(B, 1, H, dh), r(B, S, KV, dh), r(B, S, KV, dh))
         sets = [mk() for _ in range(cs.n_sets(cs.nbytes(*mk())))]
         ref = dec.decode_attention_plain(*sets[0], pos, window=window,
                                          ring=ring)
-        runs = {n: (lambda r_: lambda q, k, v: r_(q, k, v, pos, window,
-                                                   ring))(decode_runner(lib))
-                for n, lib in libs.items() if n.startswith("k2")}
+        bind = lambda run: lambda q, k, v: run(q, k, v, pos, window, ring)
+        runs = {"sm90": bind(decode_runner(libs["k2"])),
+                "cluster": bind(decode_runner(libs["k2"], "cluster"))}
+        for name in K23_VARIANTS:
+            if name != "timeline":
+                runs[f"sm90_{name}"] = bind(decode_runner(libs[f"k2_{name}"]))
+        plan = dec.launch_plan(bf, bf, B, S, H, KV, dh, sets[0][0].device)
+        for n in (1, 2, 4, 8, 16):
+            if n != plan["n_ctas"]:
+                runs[f"sm90_n{n}"] = bind(decode_runner(
+                    libs["k2"], plan=forced_plan(n)))
+        # every slot is attended at these shapes: SDPA over the slots
+        lib_fn = lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True)
         tsets = [tuple(t.transpose(1, 2).contiguous() for t in s)
                  for s in sets]
-        res = time_all(runs, sets, ref, lambda q, k, v: F.
-                       scaled_dot_product_attention(q, k, v,
-                                                    enable_gqa=True), tsets)
+        res = time_all(runs, sets, ref, lib_fn, tsets)
+        tl = timeline(libs["k2_timeline"], bind(decode_runner(
+            libs["k2_timeline"])), sets, B * KV * plan["n_ctas"])
         print(json.dumps(dict(kernel="K2", model=model, B=B, S=S, H=H,
                               KV=KV, dh=dh, pos=pos, window=window,
-                              ms_ms_err=res)), flush=True)
+                              plan=plan, ms_ms_err=res, timeline=tl)),
+              flush=True)
+        if model != "qwen3-1.7b":
+            continue
+        sets = quant_sets(g, B, S, H, KV, dh)
+        ref = dec.decode_attention_quant_plain(*sets[0], pos, window=window,
+                                               ring=ring)
+        qb = lambda run: lambda *a: run(*a, pos, window, ring)
+        runs = {"sm90": qb(quant_runner(libs["k2"])),
+                "cluster": qb(quant_runner(libs["k2"], "cluster"))}
+        for name in K23_VARIANTS:
+            if name != "timeline":
+                runs[f"sm90_{name}"] = qb(quant_runner(libs[f"k2_{name}"]))
+        plan = dec.launch_plan(bf, torch.int8, B, S, H, KV, dh,
+                               sets[0][0].device)
+        for n in (4, 8, 16):
+            if n != plan["n_ctas"]:
+                runs[f"sm90_n{n}"] = qb(quant_runner(
+                    libs["k2"], plan=forced_plan(n, 1)))
+        res = time_all(runs, sets, ref)
+        tl = timeline(libs["k2_timeline"], qb(quant_runner(
+            libs["k2_timeline"])), sets, B * KV * plan["n_ctas"])
+        print(json.dumps(dict(kernel="K3", model=model, B=B, S=S, H=H,
+                              KV=KV, dh=dh, pos=pos, window=window,
+                              plan=plan, ms_ms_err=res, timeline=tl)),
+              flush=True)
 
-        # K3: the committed kernel (lib "k2"), K2's variants and its own;
-        # at B 8 also under K2's launch plan
-        q8_libs = {n.replace("k2", "k3", 1): lib for n, lib in libs.items()
-                   if n.startswith(("k2", "k3"))}
-        for qB in (B, 8) if model == "qwen3-1.7b" else (B,):
-            sets = quant_sets(g, qB, S, H, KV, dh)
-            ref = dec.decode_attention_quant_plain(*sets[0], pos,
-                                                   window=window, ring=ring)
-            runs = {n: (lambda r_: lambda *a: r_(*a, pos, window, ring))(
-                quant_runner(lib)) for n, lib in q8_libs.items()}
-            if qB != B:
-                runs = {"k3": runs["k3"], "k3_k2_plan": (
-                    lambda r_: lambda *a: r_(*a, pos, window, ring))(
-                        quant_runner(libs["k2"], dec.cluster_plan))}
-            res = time_all(runs, sets, ref)
-            print(json.dumps(dict(kernel="K3", model=model, B=qB, S=S, H=H,
-                                  KV=KV, dh=dh, pos=pos, window=window,
-                                  ms_ms_err=res)), flush=True)
 
-    fn = libs["floor"].launch_empty
+def time_floor(lib):
+    """Empty launches of 256 CTAs: plain, and in clusters of 8 and 16."""
+    fn = lib.launch_empty
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     for gx, gy, smem, cluster in [(8, 32, 0, 1), (8, 32, 74624, 1),
-                                  (8, 32, 74624, 8), (8, 20, 48288, 8)]:
+                                  (8, 32, 74624, 8), (16, 16, 49152, 16),
+                                  (16, 8, 49152, 16)]:
         ms = cs.device_ms(lambda: _build.check(
             fn(gx, gy, smem, cluster, stream()), "empty"), [()], iters=50)
         print(json.dumps(dict(kernel="empty", grid=[gx, gy], smem=smem,
                               cluster=cluster, ms=ms)), flush=True)
+
+
+def sass_tile_loops():
+    """Static SASS of each decode_sm90 instance in the committed library
+    (``cuobjdump -sass``): its instructions, and those of its tile loop,
+    the longest loop (a backward branch and its target) that holds tensor
+    core instructions (HMMA), with the loop's ten commonest opcodes. A
+    loop's static count approximates what one tile issues: its body runs
+    once a tile, branches aside."""
+    so = _build.library("decode_attention")._name
+    text = subprocess.run(["cuobjdump", "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for block in re.split(r"\n\s*Function : ", text)[1:]:
+        name, body = block.split("\n", 1)
+        if "decode_sm90" not in name:
+            continue
+        ins, labels = [], {}
+        for line in body.splitlines():
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                labels[lab.group(1)] = len(ins)
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                ins.append((int(m.group(1), 16), m.group(2)))
+        at = {a: i for i, (a, _) in enumerate(ins)}
+        loops = []
+        for i, (_, op) in enumerate(ins):
+            m = re.search(r"\bBRA\b.*?(?:`?\((\.L_x_\d+)\)`?|0x([0-9a-f]+))",
+                          op)
+            if not m:
+                continue
+            j = (labels.get(m.group(1)) if m.group(1)
+                 else at.get(int(m.group(2), 16)))
+            if j is not None and j <= i and any(
+                    "HMMA" in o for _, o in ins[j:i + 1]):
+                loops.append((i + 1 - j, j, i))
+        opcode = lambda o: re.sub(r"^@!?U?P\w+\s+", "", o).split()[0]
+        row = {"instructions": len(ins)}
+        if loops:
+            n, j, i = max(loops)
+            ops = [opcode(o) for _, o in ins[j:i + 1]]
+            common = sorted(set(ops), key=lambda o: -ops.count(o))[:10]
+            row.update(tile_loop=n, tile_loop_hmma=sum(
+                o.startswith("HMMA") for o in ops),
+                tile_loop_opcodes={o: ops.count(o) for o in common})
+        try:
+            name = subprocess.run(["cu++filt", name.strip()],
+                                  capture_output=True, text=True,
+                                  check=True).stdout.strip()
+        except (OSError, subprocess.CalledProcessError):
+            name = name.strip()
+        out[name] = row
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("attention_variants: needs a CUDA card", file=sys.stderr)
+        return 1
+    which = sys.argv[1] if len(sys.argv) > 1 else None
+    if which not in (None, "--k1", "--k23", "--sass"):
+        print("usage: attention_variants.py [--k1 | --k23 | --sass]",
+              file=sys.stderr)
+        return 2
+    smi = cs.nvidia_smi_line()
+    print(smi, flush=True)
+    if which == "--sass":
+        for name, row in sass_tile_loops().items():
+            print(json.dumps(dict(kernel=name, **row)), flush=True)
+        return 0
+    sources = {}
+    if which != "--k23":
+        sources.update(
+            {"k1": (ROOT / "src/repro_torch/csrc/flash_attention.cu")
+             .read_text(),
+             **{f"k1_{n}": t for n, t in variants(
+                 "src/repro_torch/csrc/flash_attention.cu",
+                 K1_VARIANTS).items()}})
+    if which != "--k1":
+        sources.update(
+            {"k2": (ROOT / "src/repro_torch/csrc/decode_attention.cu")
+             .read_text(),
+             **{f"k2_{n}": t for n, t in variants(
+                 "src/repro_torch/csrc/decode_attention.cu",
+                 K23_VARIANTS).items()},
+             "floor": FLOOR})
+    libs = build(sources)
+    print(json.dumps({"spilling": {n: spills(n) for n in libs
+                                   if spills(n)}}), flush=True)
+    g = torch.Generator("cuda").manual_seed(1)
+    if which != "--k23":
+        time_k1(libs, g)
+        print(json.dumps({"k1_host_us": k1_host_us()}), flush=True)
+    if which != "--k1":
+        time_k23(libs, g)
+        time_floor(libs["floor"])
     print(smi, flush=True)
     return 0
 

@@ -13,39 +13,64 @@
 // against 4*B*H*S*dh flops, i.e. about G/2 flops per cache byte in bf16 and
 // G flops per byte in int8 (G = H/KV query heads per kv head) -- far below
 // the ~295 flops per byte where the tensor cores would bind. At serving
-// sizes the cache is 5-17 MB, about what the card must have in flight to
-// stream at its full rate, so what a kernel can do is put every byte in
-// flight at once and keep the work around the loads short. Per launch
-// the host does no more than the launch itself: the kernels work out each
-// slot's position from (pos, S, ring), and the shared-memory limit is
-// raised once per kernel and device, not at every call.
+// sizes the cache is 4-84 MB, most of it no more than the card can have in
+// flight at once, so what a kernel can do is put the bytes in flight
+// early and keep the work around the loads short. Per launch the host
+// does no more than the launch itself (and, for decode_sm90, encodes its
+// two tensor maps): the kernels work out each slot's position from (pos,
+// S, ring), and the kernels' attributes are set once per kernel and
+// device, not at every call.
 //
 // The TPU kernel walks the cache of one (batch, kv head) row in one
-// sequential pass; here B*KV is only 20-32 rows at serving sizes against
-// 132 SMs, so the cache is split across CTAs (split-K). Both kernels skip
-// slots that are invalid for this query (never written, in the future, or
-// outside the window) without reading their K/V bytes, and read each cache
-// row once for the G query heads that share it. Masking and the final
-// acc / max(l, 1e-30) follow the reference.
+// sequential pass; here B*KV is only 8-160 rows at serving sizes against
+// 132 SMs, so the cache is split across CTAs (split-K), one thread block
+// cluster per row merging through distributed shared memory. Both kernels
+// read each cache row once for the G query heads that share it, and skip
+// tiles with no valid slot (never written, in the future, or outside the
+// window) without reading them. Masking and the final acc / max(l, 1e-30)
+// follow the reference; a warp, CTA or rank with no valid slot merges as
+// (m = -1e30, l = 0, acc = 0), which adds nothing and no NaN.
 //
-// K2 and K3 are one kernel, decode_cluster, over the cache's element type:
-// one launch. A thread-block cluster of up to 8 CTAs per (batch, kv head)
-// row; each CTA takes a contiguous chunk of slots and each of its warps
-// tiles of 32 slots. A warp copies a tile's K and V rows (and, for K3, the
-// tile's 32 k and 32 v scales, each lane its own slot's) into its own
-// shared-memory ring with cp.async (two stages when it has more than one
-// tile, so that the next tile is in flight) before q is read, and rescales
-// its online softmax once per tile. The warps' (m, l, acc) merge in the
-// CTA; each CTA writes its merged partial into the shared memory of every
-// CTA of the cluster (distributed shared memory), and after one cluster
-// barrier each rank merges the ranks' partials of an n_ranks-th of the
-// outputs, normalises and writes them. A warp, CTA or rank with no valid
-// slot merges as (m = -1e30, l = 0, acc = 0), which adds nothing and no
-// NaN. A group of more than 8 query heads per kv head runs as several
-// launches, each over an equal sub-group of at most 8 heads, reading q and
-// writing o in place.
+// Two kernels, chosen by q's type and the head dim (ops.py::kernel_for; a
+// fixed dispatch, not a fallback):
 //
-// K2, bf16 (MmaPass): the tile on the tensor cores. The G query rows are
+// bf16 q at dh 64 and 128 (every served arch): decode_sm90, on Hopper's
+// own data path. A cluster of up to 16 CTAs a row (clusters above 8 are
+// non-portable; the plan asks cudaOccupancyMaxActiveClusters which sizes
+// fit in one wave). Each CTA takes whole 32-slot tiles; one producer warp
+// loads each tile that has a valid slot by TMA (4-D tensor maps over the
+// (B, S, KV, dh) cache, boxes of one kv head's 32 rows, 128-byte swizzle,
+// 64-byte for int8 rows of 64 bytes; slots past S zero-filled) into a
+// ring of up to 64 KB on full/empty mbarriers, and for K3 its lanes copy
+// the tile's 32 k and 32 v scales by cp.async, which arrives on the same
+// barrier. A partly valid tile is loaded whole and masked in the pass
+// (its other slots hold the cache's own values; p = 0 there, as in the
+// reference's masked blocks). Four consumer warps take the tiles in turn;
+// all 16 rows of the m16n8k16 m-tile carry query heads (rows past G zero),
+// so a group of up to 16 heads is one launch, and a thread holds only the
+// upper 8 rows where G <= 8 (half the accumulators). The warps merge in
+// shared memory; then each CTA sends rank r of the cluster only rank r's
+// share of the G x DH outputs and every row's (m, l) (a reduce-scatter
+// through distributed shared memory), and after one cluster barrier each
+// rank merges its share in rank order, normalises and stores it.
+//
+// float32 q, and bf16 at dh 32 and 256: decode_cluster, the first
+// design. A cluster of up to 8 CTAs per (batch, kv head) row; each CTA
+// takes a contiguous chunk of slots and each of its warps tiles of 32
+// slots. A warp copies a tile's K and V rows (and, for K3, the tile's 32 k
+// and 32 v scales, each lane its own slot's) into its own shared-memory
+// ring with cp.async (two stages when it has more than one tile, so that
+// the next tile is in flight) before q is read, and rescales its online
+// softmax once per tile. The warps' (m, l, acc) merge in the CTA; each CTA
+// writes its merged partial into the shared memory of every CTA of the
+// cluster (distributed shared memory), and after one cluster barrier each
+// rank merges the ranks' partials of an n_ranks-th of the outputs,
+// normalises and writes them. A group of more than 8 query heads per kv
+// head runs as several launches, each over an equal sub-group of at most
+// 8 heads, reading q and writing o in place (decode_sm90: of at most 16).
+//
+// decode_cluster's passes. K2, bf16 (MmaPass): the tile on the tensor
+// cores. The G query rows are
 // the rows of a 16-row mma.sync m16n8k16 tile, S = Q K^T and P.V take
 // their operands from shared memory by ldmatrix, scores and p stay in
 // registers; p is rounded to bf16 for P.V and the f32 p summed into l.
@@ -89,10 +114,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <mutex>
 #include <type_traits>
 
 #include "sm90_helpers.cuh"
+#include "sm90_tma.cuh"
 
 namespace {
 
@@ -938,31 +965,766 @@ cudaError_t launch_dh(int dh, const void* q, const void* k, const void* ks,
 #undef DECODE_CASE
 }
 
+// --- the Hopper kernel: decode_sm90 (bf16 q at dh 64 and 128) ---------------
+
+constexpr int SM90_WARPS = 4;                        // consumer warps
+constexpr int SM90_THREADS = 32 * (SM90_WARPS + 1);  // + the producer warp
+constexpr int SM90_MAX_CLUSTER = 16;  // CTAs per cluster (non-portable)
+constexpr int SM90_MAX_GROUP = 16;    // query heads per kv head: the m-tile
+constexpr int SM90_BAR = 1;           // the consumers' named barrier
+
+// The shape of decode_sm90 per cache element type C (bf16: K2, int8: K3)
+// and head dim. A cache row of one kv head is ROW bytes; TMA loads it in
+// boxes of BOX_W bytes (the 128-byte swizzle takes at most 128 bytes a
+// box row, so a bf16 row at dh 128 is two boxes; an int8 row at dh 64 is
+// one box under the 64-byte swizzle). A stage of the ring holds one
+// 32-slot tile of K, then of V. The ring is at most 64 KB deep (4 stages
+// of a bf16 dh-128 tile, 8 of the others), so that the card holds far
+// more than its latency x bandwidth product (~3 MB) in flight.
+template <typename C, int DH>
+struct Sm90Shape {
+  static constexpr bool Q8 = std::is_same<C, int8_t>::value;
+  static constexpr int ROW = DH * (int)sizeof(C);
+  static constexpr int BOX_W = ROW > 128 ? 128 : ROW;
+  static constexpr int BOX = TS * BOX_W;
+  static constexpr int TILE = TS * ROW;
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int MAX_STAGES = 65536 / STAGE;
+  // q's 16 rows in shared memory: K2 in the tiles' swizzled layout (for
+  // ldmatrix), K3 row-major with rows 32 bytes longer than q's (its 64-bit
+  // loads free of bank conflicts)
+  static constexpr int QROW = Q8 ? DH * 2 + 32 : DH * 2;
+  static constexpr int Q_BYTES = SM90_MAX_GROUP * QROW;
+};
+
+// Byte offsets in shared memory from its 1024-byte aligned start: the
+// ring (after the pass the warps' rescaled partials, SM90_WARPS x G x DH
+// floats, take its place), q, the barriers (full, then empty, one a
+// stage), the tiles' scales (K3: 32 k then 32 v scales a stage), each
+// warp's (m, l) of each row, and the cluster's gather slots: the share of
+// the G x DH outputs this rank merges, from every rank, then every rank's
+// (M, L) of each row. share: floats of a rank's share, a multiple of 4.
+struct Sm90Layout {
+  uint32_t q, bars, scales, ml, gather, gather_ml, total;
+  int share;
+};
+
+template <typename C, int DH>
+__host__ __device__ inline Sm90Layout sm90_layout(int G, int n, int stages) {
+  using SH = Sm90Shape<C, DH>;
+  Sm90Layout L;
+  const uint32_t ring = (uint32_t)stages * SH::STAGE;
+  const uint32_t part = (uint32_t)SM90_WARPS * G * DH * 4;
+  L.q = ((ring > part ? ring : part) + 127) / 128 * 128;
+  L.bars = L.q + SH::Q_BYTES;
+  L.scales = L.bars + 16 * stages;
+  L.ml = L.scales + (SH::Q8 ? stages * 2 * TS * 4 : 0);
+  L.share = ((G * DH + n - 1) / n + 3) / 4 * 4;
+  L.gather = (L.ml + SM90_WARPS * G * 8 + 15) / 16 * 16;
+  L.gather_ml = L.gather + n * L.share * 4;
+  L.total = L.gather_ml + n * G * 8;
+  return L;
+}
+
+// The byte offset of 16-byte chunk c of row r of a tile (ROWS = 32 slots)
+// or of q (16 rows) as TMA's swizzle lays out boxes of BOX_W-byte rows:
+// the box (c / (BOX_W / 16)), the row, then the chunk XOR the row's
+// swizzle bits (128-byte swizzle: r mod 8; 64-byte: (r / 2) mod 4), which
+// puts the 8 rows an ldmatrix or a quarter-warp load reads in distinct
+// bank groups.
+template <int BOX_W, int ROWS>
+__device__ __forceinline__ int sw_at(int r, int c) {
+  constexpr int CPB = BOX_W / 16;
+  const int x = BOX_W == 128 ? (r & 7) : ((r >> 1) & 3);
+  return (c / CPB) * (ROWS * BOX_W) + r * BOX_W + ((c % CPB) ^ x) * 16;
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(a));
+  return v;
+}
+
+// c += A B on one m16n8k16 bf16 mma: the 16-row tile (R = 2: c holds rows
+// g and g + 8) or its upper half (R = 1: rows 8-15 of A zero and their
+// accumulators dropped, half the registers; a[1] and a[3] unread)
+template <int R>
+__device__ __forceinline__ void mma_rows(float (&c)[2 * R],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (R == 2)
+    mma_bf16(c, a, b0, b1);
+  else
+    mma_bf16_upper(c, a[0], a[2], b0, b1);
+}
+
+// The online softmax of a tile's scores s (s[j][e]: slot 8j + 2t + (e & 1)
+// of row g + 8 (e >> 1), e < 2R), already scaled to log2 units: masked
+// slots to -1e30, the running max, the rescale of l and acc, then p in
+// f32 into l (0 for an invalid slot) and, times vs(j, e & 1) (1 for K2,
+// the slot's v scale for K3), rounded to bf16 into the A fragments of
+// P.V (pa[kk][1] and pa[kk][3], rows g + 8, only where R = 2).
+template <int R, int ND, typename VS>
+__device__ __forceinline__ void online_softmax(float (&s)[4][2 * R],
+                                               float (&acc)[ND][2 * R],
+                                               float (&m)[R], float (&l)[R],
+                                               uint32_t (&pa)[2][4],
+                                               unsigned mask, int t, VS vs) {
+  float mx[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) mx[r] = NEG_INF;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2 * R; ++e) {
+      if (!((mask >> (8 * j + 2 * t + (e & 1))) & 1u)) s[j][e] = NEG_INF;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    const float alpha = ex2(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      acc[j][2 * r] *= alpha;
+      acc[j][2 * r + 1] *= alpha;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float p[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = (mask >> (8 * j + 2 * t + e)) & 1u;
+        p[e] = ok ? ex2(s[j][2 * r + e] - m[r]) : 0.f;
+      }
+      l[r] += p[0] + p[1];
+      pa[j / 2][(j & 1) * 2 + r] = pack_bf16(p[0] * vs(j, 0), p[1] * vs(j, 1));
+    }
+}
+
+// A warp's pass over its bf16 tiles (K2): the G query rows are rows
+// 0..G-1 of a 16-row m16n8k16 m-tile (rows past G zero, their outputs
+// dropped); S = Q K^T is DH/16 x 4 mmas, P.V 2 x DH/8, every operand read
+// by ldmatrix from the swizzled tiles. This thread holds rows g (and
+// g + 8 where R = 2).
+template <int DH, int R>
+struct Sm90Pass {
+  static constexpr int KD = DH / 16, ND = DH / 8;
+  float acc[ND][2 * R];
+  float m[R], l[R];  // running max (log2 units), this thread's row sums
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 2 * R; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      m[r] = NEG_INF;
+      l[r] = 0.f;
+    }
+  }
+
+  // mask: bit i set iff slot i of the tile is valid
+  __device__ __forceinline__ void tile(uint32_t qs, uint32_t kt, uint32_t vt,
+                                       const float*, unsigned mask,
+                                       float scale_log2, int lane) {
+    const int t = lane % 4;
+    const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int a_col = lane >> 4;
+    const int k_row = (lane & 7) + (lane >> 4) * 8;
+    const int k_col = (lane >> 3) & 1;
+    float s[4][2 * R];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2 * R; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      ldsm_x4(a, qs + sw_at<128, SM90_MAX_GROUP>(a_row, 2 * kk + a_col));
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bb[4];
+        ldsm_x4(bb, kt + sw_at<128, TS>(np * 16 + k_row, 2 * kk + k_col));
+        mma_rows<R>(s[2 * np], a, bb[0], bb[1]);
+        mma_rows<R>(s[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2 * R; ++e) s[j][e] *= scale_log2;
+    uint32_t pa[2][4];
+    online_softmax<R>(s, acc, m, l, pa, mask, t,
+                      [](int, int) { return 1.f; });
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int dp = 0; dp < ND / 2; ++dp) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, vt + sw_at<128, TS>(kk * 16 + a_row, 2 * dp + a_col));
+        mma_rows<R>(acc[2 * dp], pa[kk], bb[0], bb[1]);
+        mma_rows<R>(acc[2 * dp + 1], pa[kk], bb[2], bb[3]);
+      }
+  }
+
+  // the output column of accumulator (j, e)
+  __device__ __forceinline__ static int col(int j, int e, int t) {
+    return 8 * j + 2 * t + (e & 1);
+  }
+};
+
+// A warp's pass over its int8 tiles (K3, bf16 q): Q8MmaPass's arithmetic,
+// over all 16 rows of the m-tile where R = 2. S = Q K8^T takes the k
+// dimension of each 16-wide k-step in an order of its own, the same for q
+// and k: lane t's B registers are bytes 16kk + 4t .. + 3 of its slot's row
+// (one 32-bit load), its A registers q[g][16kk + 4t .. + 3] (and q[g + 8]
+// [...]), one 64-bit load a row. Each score column then takes its slot's k
+// scale in f32. For P.V, p times the slot's v scale is rounded to bf16; a
+// thread loads bytes 32blk + 4g .. + 3 of slot rows 16kk + 2t, + 1, + 8,
+// + 9 and byte j of them is B of n-tile 4blk + j, so accumulator (j, e) of
+// block blk is output column 32blk + 8t + 4(e & 1) + j.
+template <int DH, int R>
+struct Sm90Q8Pass {
+  static constexpr int KD = DH / 16, ND = DH / 8, BW = DH;  // one box a row
+  static constexpr int QROW = Sm90Shape<int8_t, DH>::QROW;
+  float acc[ND][2 * R];
+  float m[R], l[R];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 2 * R; ++e) acc[j][e] = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      m[r] = NEG_INF;
+      l[r] = 0.f;
+    }
+  }
+
+  __device__ __forceinline__ void tile(uint32_t qs, uint32_t kt, uint32_t vt,
+                                       const float* sc, unsigned mask,
+                                       float scale_log2, int lane) {
+    const int g = lane / 4, t = lane % 4;
+    float s[4][2 * R];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2 * R; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                   : "=r"(a[0]), "=r"(a[2])
+                   : "r"(qs + g * QROW + 32 * kk + 8 * t));
+      if constexpr (R == 2)
+        asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                     : "=r"(a[1]), "=r"(a[3])
+                     : "r"(qs + (g + 8) * QROW + 32 * kk + 8 * t));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t w =
+            lds32(kt + sw_at<BW, TS>(8 * j + g, kk) + 4 * t) ^ I8_BIAS;
+        mma_rows<R>(s[j], a, bf16x2_exact(i8_at(w, 0), i8_at(w, 1)),
+                    bf16x2_exact(i8_at(w, 2), i8_at(w, 3)));
+      }
+    }
+    // score (j, e) is slot 8j + 2t + (e & 1): its k scale and dh^-0.5
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 ks = *reinterpret_cast<const float2*>(sc + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 2 * R; ++e)
+        s[j][e] *= (e & 1 ? ks.y : ks.x) * scale_log2;
+    }
+    uint32_t pa[2][4];
+    online_softmax<R>(s, acc, m, l, pa, mask, t, [&](int j, int e) {
+      return sc[TS + 8 * j + 2 * t + e];
+    });
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const int r0 = 16 * kk + 2 * t;
+#pragma unroll
+      for (int blk = 0; blk < DH / 32; ++blk) {
+        const int c = 2 * blk + (g >> 2), w = 4 * (g & 3);
+        const uint32_t w0 = lds32(vt + sw_at<BW, TS>(r0, c) + w) ^ I8_BIAS;
+        const uint32_t w1 =
+            lds32(vt + sw_at<BW, TS>(r0 + 1, c) + w) ^ I8_BIAS;
+        const uint32_t w8 =
+            lds32(vt + sw_at<BW, TS>(r0 + 8, c) + w) ^ I8_BIAS;
+        const uint32_t w9 =
+            lds32(vt + sw_at<BW, TS>(r0 + 9, c) + w) ^ I8_BIAS;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          mma_rows<R>(acc[4 * blk + j], pa[kk],
+                      bf16x2_exact(i8_at(w0, j), i8_at(w1, j)),
+                      bf16x2_exact(i8_at(w8, j), i8_at(w9, j)));
+      }
+    }
+  }
+
+  __device__ __forceinline__ static int col(int j, int e, int t) {
+    return 32 * (j / 4) + 8 * t + 4 * (e & 1) + (j % 4);
+  }
+};
+
+// One cluster of gridDim.x CTAs per batch*kv-head row (blockIdx.y); CTA
+// rank r takes slots [r * chunk, min(S, (r + 1) * chunk)) in tiles of 32
+// from its first slot. tk, tv: 4-D tensor maps (dh, KV, S, B) over the
+// cache, boxes of BOX_W bytes x 1 head x 32 slots x 1 batch row (slots
+// past S read as zeros). The CTA's k-th tile with a valid slot goes to
+// stage k % n_stages, and each stage s to consumer warp s % SM90_WARPS
+// alone: a warp waits on a stage's phases in order, so the parity of its
+// wait is never one a phase ahead of the barrier, at any depth (every warp
+// takes tiles where n_stages is a multiple of SM90_WARPS or at least the
+// CTA's tiles; a shallower ring leaves warps idle). k_scale, v_scale:
+// K3's (B, S, KV) scales, unread by K2. R: the rows of the m-tile a thread
+// holds, 1 for G <= 8 (rows 8-15 zero), 2 for G up to 16.
+template <typename C, int DH, int R>
+__global__ void __launch_bounds__(SM90_THREADS, 2)
+    decode_sm90(const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const bf16* __restrict__ q,
+                const float* __restrict__ k_scale,
+                const float* __restrict__ v_scale, bf16* __restrict__ o,
+                int S, int KV, int G, int qg, int q0, int pos, int window,
+                int ring, int chunk, int n_stages, float scale_log2) {
+  using SH = Sm90Shape<C, DH>;
+  using Pass =
+      std::conditional_t<SH::Q8, Sm90Q8Pass<DH, R>, Sm90Pass<DH, R>>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* base_p = smem_raw + (base - smem_u32(smem_raw));
+  const int n_ranks = gridDim.x, rank = blockIdx.x;
+  const Sm90Layout ly = sm90_layout<C, DH>(G, n_ranks, n_stages);
+  auto full = [&](int s) { return base + ly.bars + 8 * s; };
+  auto empty = [&](int s) { return base + ly.bars + 8 * (n_stages + s); };
+  float* scales = reinterpret_cast<float*>(base_p + ly.scales);
+  float* ml = reinterpret_cast<float*>(base_p + ly.ml);
+  float* part = reinterpret_cast<float*>(base_p);
+  const float* gather = reinterpret_cast<const float*>(base_p + ly.gather);
+  const float* gather_ml =
+      reinterpret_cast<const float*>(base_p + ly.gather_ml);
+
+  // every CTA of the cluster has started before any writes into another's
+  // shared memory: arrive now, wait before the first remote write
+  cluster_arrive_relaxed();
+  const int bkv = blockIdx.y, b = bkv / KV, kvh = bkv % KV;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int s0 = rank * chunk, s1 = min(S, s0 + chunk);
+  const int n_tiles = s1 > s0 ? (s1 - s0 + TS - 1) / TS : 0;
+  // whether slot s is one this query attends to
+  auto valid = [&](int s) {
+    if (s >= s1) return false;
+    const int sp = slot_position(s, S, pos, ring != 0);
+    return sp >= 0 && sp <= pos && !(window > 0 && sp <= pos - window);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < n_stages; ++s) {
+      // K3: the expect_tx arrival and the 32 lanes' scale copies
+      mbar_init(full(s), SH::Q8 ? 33 : 1);
+      mbar_init(empty(s), 1);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == SM90_WARPS) {
+    // the producer warp: lane 0 loads each tile that has a valid slot by
+    // TMA into the next stage once its consumer has released it; for K3
+    // each lane copies its slot's two scales by cp.async, which arrives on
+    // the same barrier when they land. Its lanes take part in both
+    // cluster barriers.
+    int k = 0;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int first = s0 + i * TS;
+      const unsigned mask = __ballot_sync(0xffffffffu, valid(first + lane));
+      if (mask == 0) continue;  // no valid slot: nothing read
+      const int st = k % n_stages;
+      if (k >= n_stages) mbar_wait(empty(st), (k / n_stages - 1) & 1);
+      if (lane == 0) {
+        const uint32_t kd = base + st * SH::STAGE, vd = kd + SH::TILE;
+        mbar_expect_tx(full(st), 2 * SH::TILE);
+#pragma unroll
+        for (int x = 0; x < SH::ROW / SH::BOX_W; ++x) {
+          const int c0 = x * SH::BOX_W / (int)sizeof(C);
+          tma_load_4d(kd + x * SH::BOX, &tk, full(st), c0, kvh, first, b);
+          tma_load_4d(vd + x * SH::BOX, &tv, full(st), c0, kvh, first, b);
+        }
+      }
+      if constexpr (SH::Q8) {
+        const bool ok = (mask >> lane) & 1u;
+        const size_t off =
+            ((size_t)b * S + (ok ? first + lane : 0)) * KV + kvh;
+        const uint32_t sd = smem_u32(scales + st * 2 * TS + lane);
+        cp_async4(sd, k_scale + off, ok);
+        cp_async4(sd + 4 * TS, v_scale + off, ok);
+        cp_async_mbar_arrive(full(st));
+      }
+      ++k;
+    }
+    cluster_wait();
+    cluster_arrive();
+    cluster_wait();
+    return;
+  }
+
+  // the consumers: q's G rows into shared memory, rows past G zero
+  {
+    constexpr int CPR = DH / 8;  // 16-byte chunks of a q row
+    const bf16* qrow0 = q + ((size_t)bkv * qg + q0) * DH;
+    for (int i = tid; i < SM90_MAX_GROUP * CPR; i += 32 * SM90_WARPS) {
+      const int r = i / CPR, c = i % CPR;
+      const uint4 x = r < G ? *reinterpret_cast<const uint4*>(
+                                  qrow0 + (size_t)r * DH + c * 8)
+                            : make_uint4(0u, 0u, 0u, 0u);
+      const int at = SH::Q8 ? r * SH::QROW + c * 16
+                            : sw_at<128, SM90_MAX_GROUP>(r, c);
+      *reinterpret_cast<uint4*>(base_p + ly.q + at) = x;
+    }
+    named_bar_sync(SM90_BAR, 32 * SM90_WARPS);
+  }
+
+  Pass pass;
+  pass.init();
+  int k = 0;
+  for (int i = 0; i < n_tiles; ++i) {
+    const unsigned mask =
+        __ballot_sync(0xffffffffu, valid(s0 + i * TS + lane));
+    if (mask == 0) continue;
+    const int kk = k++;
+    const int st = kk % n_stages;
+    if (st % SM90_WARPS != warp) continue;
+    mbar_wait(full(st), (kk / n_stages) & 1);
+    const uint32_t kt = base + st * SH::STAGE;
+    pass.tile(base + ly.q, kt, kt + SH::TILE, scales + st * 2 * TS, mask,
+              scale_log2, lane);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  }
+
+  // the CTA's merge: each warp's (m, l) of its rows; once every tile is
+  // consumed (the ring is free), its acc rescaled to the CTA's max into
+  // its slot of the partials
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    float lr = pass.l[r];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int row = g + 8 * r;
+    if (t == 0 && row < G) {
+      ml[(warp * G + row) * 2] = pass.m[r];
+      ml[(warp * G + row) * 2 + 1] = lr;
+    }
+  }
+  named_bar_sync(SM90_BAR, 32 * SM90_WARPS);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = g + 8 * r;
+    if (row >= G) continue;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < SM90_WARPS; ++w) M = fmaxf(M, ml[(w * G + row) * 2]);
+    const float f = ex2(pass.m[r] - M);
+    float* dst = part + (warp * G + row) * DH;
+#pragma unroll
+    for (int j = 0; j < Pass::ND; ++j) {
+      dst[Pass::col(j, 2 * r, t)] = pass.acc[j][2 * r] * f;
+      dst[Pass::col(j, 2 * r + 1, t)] = pass.acc[j][2 * r + 1] * f;
+    }
+  }
+  named_bar_sync(SM90_BAR, 32 * SM90_WARPS);
+
+  // the reduce-scatter: rank r receives only its share of the G x DH
+  // outputs (summed over the warps) and every row's (M, L)
+  cluster_wait();
+  const int share = ly.share;
+  const uint32_t gat = base + ly.gather, gml = base + ly.gather_ml;
+  for (int i = 4 * tid; i < G * DH; i += 4 * 32 * SM90_WARPS) {
+    float4 a = *reinterpret_cast<const float4*>(part + i);
+#pragma unroll
+    for (int w = 1; w < SM90_WARPS; ++w) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(part + w * G * DH + i);
+      a.x += x.x;
+      a.y += x.y;
+      a.z += x.z;
+      a.w += x.w;
+    }
+    const int dst = i / share;
+    st_dsmem4(mapa(gat + 4 * (rank * share + i - dst * share), dst), a);
+  }
+  for (int i = tid; i < G * n_ranks; i += 32 * SM90_WARPS) {
+    const int row = i % G, dst = i / G;
+    float M = NEG_INF, L = 0.f;
+#pragma unroll
+    for (int w = 0; w < SM90_WARPS; ++w) M = fmaxf(M, ml[(w * G + row) * 2]);
+#pragma unroll
+    for (int w = 0; w < SM90_WARPS; ++w)
+      L += ml[(w * G + row) * 2 + 1] * ex2(ml[(w * G + row) * 2] - M);
+    st_dsmem2(mapa(gml + 8 * (rank * G + row), dst), M, L);
+  }
+  cluster_arrive();
+  cluster_wait();
+
+  // this rank's share: the ranks' partials merged in rank order,
+  // normalised and stored
+  const int i_end = min(G * DH, (rank + 1) * share);
+  for (int i = rank * share + 4 * tid; i < i_end;
+       i += 4 * 32 * SM90_WARPS) {
+    const int row = i / DH;
+    float M = NEG_INF;
+    for (int r = 0; r < n_ranks; ++r)
+      M = fmaxf(M, gather_ml[(r * G + row) * 2]);
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    float L = 0.f;
+    for (int r = 0; r < n_ranks; ++r) {
+      const float f = ex2(gather_ml[(r * G + row) * 2] - M);
+      const float4 x = *reinterpret_cast<const float4*>(
+          gather + r * share + i - rank * share);
+      a.x += x.x * f;
+      a.y += x.y * f;
+      a.z += x.z * f;
+      a.w += x.w * f;
+      L += gather_ml[(r * G + row) * 2 + 1] * f;
+    }
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    *reinterpret_cast<uint2*>(o + ((size_t)bkv * qg + q0 + row) * DH +
+                              i % DH) =
+        make_uint2(pack_bf16(a.x * inv, a.y * inv),
+                   pack_bf16(a.z * inv, a.w * inv));
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime
+// (so the library needs no link against libcuda); null if absent.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The 4-D map (dh, KV, S, B), innermost first, over a cache of C in the
+// model layout (B, S, KV, dh): boxes of BOX_W bytes x 1 kv head x 32 slots
+// x 1 batch row, swizzled by BOX_W bytes. Keeping S and B apart makes TMA
+// zero-fill a tile's slots past S instead of reading the next batch row.
+template <typename C, int DH>
+cudaError_t make_cache_map(CUtensorMap* map, const void* ptr, int KV, int S,
+                           int B) {
+  using SH = Sm90Shape<C, DH>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  constexpr cuuint64_t es = sizeof(C);
+  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)KV, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {DH * es, (cuuint64_t)KV * DH * es,
+                                 (cuuint64_t)S * KV * DH * es};
+  const cuuint32_t box[4] = {(cuuint32_t)(SH::BOX_W / es), 1, TS, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map,
+      SH::Q8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      SH::BOX_W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : CU_TENSOR_MAP_SWIZZLE_64B,
+      SH::ROW > 128 ? CU_TENSOR_MAP_L2_PROMOTION_L2_256B
+                    : CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// decode_sm90's dynamic shared memory: the layout and its alignment slack
+template <typename C, int DH>
+size_t sm90_smem(int G, int n, int stages) {
+  return sm90_layout<C, DH>(G, n, stages).total + 1024;
+}
+
+// Let decode_sm90<C, DH, R> take the device's opt-in shared memory and
+// clusters of up to SM90_MAX_CLUSTER CTAs: once per device.
+template <typename C, int DH, int R>
+cudaError_t sm90_attributes() {
+  static std::once_flag once[MAX_DEVICES];
+  static cudaError_t result[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::call_once(once[dev], [dev] {
+    int optin = 0;
+    cudaError_t e = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(decode_sm90<C, DH, R>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(decode_sm90<C, DH, R>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    result[dev] = e;
+  });
+  return result[dev];
+}
+
+// The launch configuration of decode_sm90: a cluster of n CTAs a row
+void sm90_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute (&attr)[1],
+                 int n, int rows, size_t smem, cudaStream_t stream) {
+  cfg = {};
+  cfg.gridDim = dim3(n, rows);
+  cfg.blockDim = dim3(SM90_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+}
+
+std::atomic<long long> n_launches[2];  // device launches by kernel code
+
+template <typename C, int DH, int R>
+cudaError_t launch_rows(const CUtensorMap& tk, const CUtensorMap& tv,
+                        const void* q, const void* ks, const void* vs,
+                        void* o, int B, int S, int G, int KV, int qg, int q0,
+                        int pos, int window, int ring, int n_ctas, int chunk,
+                        int n_stages, float scale, cudaStream_t stream) {
+  cudaError_t err = sm90_attributes<C, DH, R>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  sm90_config(cfg, attr, n_ctas, B * KV,
+              sm90_smem<C, DH>(G, n_ctas, n_stages), stream);
+  return cudaLaunchKernelEx(
+      &cfg, decode_sm90<C, DH, R>, tk, tv, static_cast<const bf16*>(q),
+      static_cast<const float*>(ks), static_cast<const float*>(vs),
+      static_cast<bf16*>(o), S, KV, G, qg, q0, pos, window, ring, chunk,
+      n_stages, scale * LOG2E);
+}
+
+template <typename C, int DH>
+cudaError_t launch_sm90(const void* q, const void* k, const void* ks,
+                        const void* v, const void* vs, void* o, int B, int S,
+                        int H, int KV, int qg, int q0, int pos, int window,
+                        int ring, int n_ctas, int chunk, int n_stages,
+                        float scale, cudaStream_t stream) {
+  using SH = Sm90Shape<C, DH>;
+  const int G = H / KV;
+  if (G > SM90_MAX_GROUP || n_ctas < 1 || n_ctas > SM90_MAX_CLUSTER ||
+      chunk < 1 || (long)n_ctas * chunk < S || n_stages < 1 ||
+      n_stages > SH::MAX_STAGES || (long)B * KV > 65535)
+    return cudaErrorInvalidValue;
+  CUtensorMap tk, tv;
+  cudaError_t err = make_cache_map<C, DH>(&tk, k, KV, S, B);
+  if (err == cudaSuccess) err = make_cache_map<C, DH>(&tv, v, KV, S, B);
+  if (err != cudaSuccess) return err;
+  err = G > 8 ? launch_rows<C, DH, 2>(tk, tv, q, ks, vs, o, B, S, G, KV, qg,
+                                      q0, pos, window, ring, n_ctas, chunk,
+                                      n_stages, scale, stream)
+              : launch_rows<C, DH, 1>(tk, tv, q, ks, vs, o, B, S, G, KV, qg,
+                                      q0, pos, window, ring, n_ctas, chunk,
+                                      n_stages, scale, stream);
+  if (err != cudaSuccess) return err;
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++n_launches[1];
+  return err;
+}
+
+// The kernel codes of the C entries (ops.py KERNELS)
+constexpr int CLUSTER = 0, SM90 = 1;
+
+// K2 (C = T) or K3 (C = int8) by kernel code: decode_cluster at any
+// supported (T, dh), decode_sm90 at bf16 and dh 64 or 128 only
+template <typename T, typename C>
+cudaError_t launch_kernel(int kernel, int dh, const void* q, const void* k,
+                          const void* ks, const void* v, const void* vs,
+                          void* o, int B, int S, int H, int KV, int qg,
+                          int q0, int pos, int window, int ring, int n_ctas,
+                          int chunk, int n_stages, float scale,
+                          cudaStream_t stream) {
+  if (kernel == CLUSTER) {
+    const cudaError_t err =
+        launch_dh<T, C>(dh, q, k, ks, v, vs, o, B, S, H, KV, qg, q0, pos,
+                        window, ring, n_ctas, chunk, scale, stream);
+    if (err == cudaSuccess) ++n_launches[0];
+    return err;
+  }
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (kernel == SM90 && KV >= 1 && H % KV == 0 && q0 >= 0 &&
+        q0 + H / KV <= qg) {
+      if (dh == 64)
+        return launch_sm90<C, 64>(q, k, ks, v, vs, o, B, S, H, KV, qg, q0,
+                                  pos, window, ring, n_ctas, chunk, n_stages,
+                                  scale, stream);
+      if (dh == 128)
+        return launch_sm90<C, 128>(q, k, ks, v, vs, o, B, S, H, KV, qg, q0,
+                                   pos, window, ring, n_ctas, chunk,
+                                   n_stages, scale, stream);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // K2 over a sub-group of each kv head's query group: q and o (B, 1,
 // KV * qg, dh) hold qg query heads per kv head, and this launch attends
-// with heads q0 .. q0 + H / KV - 1 of each group (H / KV at most 8), in
-// place; qg = H / KV, q0 = 0 is the whole group. k/v (B, S, KV, dh) of q's
-// type, 16-byte aligned. dtype: 0 = f32, 1 = bf16. ring: 0 = full cache,
-// 1 = ring. n_ctas (1-8) CTAs per batch*kv-head row, one cluster, each
-// over chunk slots (n_ctas * chunk >= S).
+// with heads q0 .. q0 + H / KV - 1 of each group, in place; qg = H / KV,
+// q0 = 0 is the whole group. k/v (B, S, KV, dh) of q's type, 16-byte
+// aligned. dtype: 0 = f32, 1 = bf16. ring: 0 = full cache, 1 = ring.
+// n_ctas CTAs per batch*kv-head row, one cluster, each over chunk slots
+// (n_ctas * chunk >= S). kernel (ops.py::kernel_for): 0 = decode_cluster
+// (any dtype and dh; H / KV at most 8, n_ctas 1-8; n_stages unread), 1 =
+// decode_sm90 (bf16 at dh 64 and 128; H / KV at most 16, n_ctas 1-16,
+// n_stages the ring's depth); any other combination is
+// cudaErrorInvalidValue, never another kernel.
 extern "C" int decode_attention_group_fwd(const void* q, const void* k,
-                                          const void* v, void* o, int dtype,
-                                          int B, int S, int H, int KV,
-                                          int qg, int q0, int dh, int pos,
-                                          int window, int ring, int n_ctas,
-                                          int chunk, float scale,
+                                          const void* v, void* o, int kernel,
+                                          int dtype, int B, int S, int H,
+                                          int KV, int qg, int q0, int dh,
+                                          int pos, int window, int ring,
+                                          int n_ctas, int chunk,
+                                          int n_stages, float scale,
                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dh<float, float>(dh, q, k, nullptr, v, nullptr, o, B, S,
-                                   H, KV, qg, q0, pos, window, ring, n_ctas,
-                                   chunk, scale, st);
+    return launch_kernel<float, float>(kernel, dh, q, k, nullptr, v, nullptr,
+                                       o, B, S, H, KV, qg, q0, pos, window,
+                                       ring, n_ctas, chunk, n_stages, scale,
+                                       st);
   if (dtype == 1)
-    return launch_dh<bf16, bf16>(dh, q, k, nullptr, v, nullptr, o, B, S, H,
-                                 KV, qg, q0, pos, window, ring, n_ctas, chunk,
-                                 scale, st);
+    return launch_kernel<bf16, bf16>(kernel, dh, q, k, nullptr, v, nullptr,
+                                     o, B, S, H, KV, qg, q0, pos, window,
+                                     ring, n_ctas, chunk, n_stages, scale,
+                                     st);
   return cudaErrorInvalidValue;
 }
 
@@ -971,19 +1733,72 @@ extern "C" int decode_attention_group_fwd(const void* q, const void* k,
 extern "C" int decode_attention_q8_fwd(const void* q, const void* k,
                                        const void* k_scale, const void* v,
                                        const void* v_scale, void* o,
-                                       int dtype, int B, int S, int H,
-                                       int KV, int qg, int q0, int dh,
+                                       int kernel, int dtype, int B, int S,
+                                       int H, int KV, int qg, int q0, int dh,
                                        int pos, int window, int ring,
-                                       int n_ctas, int chunk, float scale,
-                                       void* stream) {
+                                       int n_ctas, int chunk, int n_stages,
+                                       float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dh<float, int8_t>(dh, q, k, k_scale, v, v_scale, o, B, S,
-                                    H, KV, qg, q0, pos, window, ring, n_ctas,
-                                    chunk, scale, st);
+    return launch_kernel<float, int8_t>(kernel, dh, q, k, k_scale, v,
+                                        v_scale, o, B, S, H, KV, qg, q0, pos,
+                                        window, ring, n_ctas, chunk,
+                                        n_stages, scale, st);
   if (dtype == 1)
-    return launch_dh<bf16, int8_t>(dh, q, k, k_scale, v, v_scale, o, B, S, H,
-                                   KV, qg, q0, pos, window, ring, n_ctas,
-                                   chunk, scale, st);
+    return launch_kernel<bf16, int8_t>(kernel, dh, q, k, k_scale, v, v_scale,
+                                       o, B, S, H, KV, qg, q0, pos, window,
+                                       ring, n_ctas, chunk, n_stages, scale,
+                                       st);
   return cudaErrorInvalidValue;
+}
+
+// The device launches this library has made of the kernel code's kernel
+// (K2 and K3 together); -1 for another code.
+extern "C" long long decode_attention_device_launches(int kernel) {
+  return kernel >= 0 && kernel < 2 ? n_launches[kernel].load() : -1;
+}
+
+// decode_sm90's dynamic shared memory (bytes) over an int8 (q8 1) or bf16
+// (q8 0) cache at head dim dh, G query heads a launch, clusters of n CTAs
+// and a ring of `stages`; -1 for an uninstantiated kernel.
+extern "C" long long decode_attention_sm90_smem(int q8, int dh, int G,
+                                                int n, int stages) {
+  if (q8 == 0 && dh == 64) return sm90_smem<bf16, 64>(G, n, stages);
+  if (q8 == 0 && dh == 128) return sm90_smem<bf16, 128>(G, n, stages);
+  if (q8 == 1 && dh == 64) return sm90_smem<int8_t, 64>(G, n, stages);
+  if (q8 == 1 && dh == 128) return sm90_smem<int8_t, 128>(G, n, stages);
+  return -1;
+}
+
+// How many clusters of n CTAs of decode_sm90 (as above; the instance for
+// G's rows) the current card holds at once
+// (cudaOccupancyMaxActiveClusters), or a negative error.
+extern "C" int decode_attention_sm90_clusters(int q8, int dh, int G, int n,
+                                              int stages) {
+  const long long smem = decode_attention_sm90_smem(q8, dh, G, n, stages);
+  if (smem < 0 || n < 1 || n > SM90_MAX_CLUSTER || stages < 1)
+    return -(int)cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  int count = 0;
+  const auto query = [&](auto kernel, cudaError_t attrs) {
+    err = attrs;
+    if (err != cudaSuccess) return;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr[1];
+    sm90_config(cfg, attr, n, 1, (size_t)smem, nullptr);
+    err = cudaOccupancyMaxActiveClusters(&count, kernel, &cfg);
+  };
+#define SM90_QUERY(Q8, C, D)                                            \
+  if (q8 == Q8 && dh == D) {                                            \
+    if (G > 8)                                                          \
+      query(decode_sm90<C, D, 2>, sm90_attributes<C, D, 2>());          \
+    else                                                                \
+      query(decode_sm90<C, D, 1>, sm90_attributes<C, D, 1>());          \
+  }
+  SM90_QUERY(0, bf16, 64)
+  SM90_QUERY(0, bf16, 128)
+  SM90_QUERY(1, int8_t, 64)
+  SM90_QUERY(1, int8_t, 128)
+#undef SM90_QUERY
+  return err == cudaSuccess ? count : -(int)err;
 }

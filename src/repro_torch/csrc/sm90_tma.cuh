@@ -3,8 +3,9 @@
 // their distributed shared memory, wgmma shared-memory descriptors and
 // products (bf16 and tf32), and the register hand-over between
 // warpgroups (setmaxnreg). Used by K1's bf16 kernel at head dims 64 and
-// 128 (flash_attention.cu), K4's chunkwise kernel (mlstm_scan.cu) and
-// K5's chunked kernel (ssm_scan.cu).
+// 128 (flash_attention.cu), K2/K3's decode kernel (decode_attention.cu),
+// K4's chunkwise kernel (mlstm_scan.cu) and K5's chunked kernel
+// (ssm_scan.cu).
 #pragma once
 
 #include <cuda.h>
@@ -35,6 +36,15 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// An arrival on bar once every cp.async this thread has issued so far has
+// landed; it counts against the barrier's expected arrivals (.noinc), so
+// the count given to mbar_init includes it.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               ::"r"(bar)
                : "memory");
 }
 
@@ -181,6 +191,13 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
+// The arrive of a cluster barrier that orders nothing: for the barrier at
+// a kernel's start that every CTA has started before any writes into
+// another's shared memory.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+
 // The shared::cluster address of this CTA's shared address a in the CTA
 // of the cluster of the given rank.
 __device__ __forceinline__ uint32_t mapa(uint32_t a, uint32_t rank) {
@@ -205,6 +222,18 @@ __device__ __forceinline__ float4 ld_dsmem4(uint32_t a) {
                : "r"(a)
                : "memory");
   return v;
+}
+
+__device__ __forceinline__ void st_dsmem2(uint32_t a, float x, float y) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(a),
+               "f"(x), "f"(y)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_dsmem4(uint32_t a, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
 }
 
 // An arrival on an mbarrier of another CTA of the cluster (a from mapa).

@@ -176,7 +176,8 @@ def test_decode_kernels_vs_plain(gen, dtype, B, S, H, KV, dh, window, ring,
     assert out.dtype == dt and _err(out, ref) < _tol(dt)
 
 
-# K2's edges: clusters of up to 8 CTAs, warp tiles of 32 slots
+# K2's edges: clusters of up to 8 CTAs (decode_cluster) or 16
+# (decode_sm90), tiles of 32 slots
 K2_EDGE_CASES = [
     # a full cache at pos 0, 1 and 31: most of a cluster has no valid slot
     (2, 1024, 16, 8, 128, 0, False, 0),
@@ -248,9 +249,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     (32, 1, 64, True, 2000),     # G 32: four sub-groups of 8
 ])
 def test_decode_k2_groups_above_8(gen, dtype, H, KV, dh, ring, pos):
-    """K2 takes at most 8 query heads per kv head a launch; the wrapper
-    runs a larger group in sub-groups, one launch each, and never raises
-    for a group that divides H."""
+    """K2 takes at most 8 query heads per kv head a launch on
+    decode_cluster (float32, dh 32 and 256), 16 on decode_sm90; the
+    wrapper runs a larger group in sub-groups, one launch each, within one
+    counted call, and never raises for a group that divides H."""
     dt = getattr(torch, dtype)
     B, S = 4, 1024
     r = lambda *s: torch.randn(*s, generator=gen, device="cuda", dtype=dt)
@@ -640,7 +642,8 @@ def _device_launches(source, fn):
     count = getattr(_build.library(source), f"{source}_device_launches")
     count.restype, count.argtypes = ctypes.c_longlong, [ctypes.c_int]
     codes = range({"mlstm_scan": len(k4.KERNELS),
-                   "ssm_scan": len(k5.KERNELS)}[source])
+                   "ssm_scan": len(k5.KERNELS),
+                   "decode_attention": len(dec.KERNELS)}[source])
     before = [count(k) for k in codes]
     out = fn()
     torch.cuda.synchronize()
@@ -936,3 +939,169 @@ def test_batchsim_lanes_on_the_card_match_the_cpu(gen):
     for k in cpu["raw"]:
         assert card["raw"][k].tobytes() == cpu["raw"][k].tobytes(), k
     assert card["summary"] == cpu["summary"]
+
+
+# K2 and K3 on decode_sm90 (bf16 at dh 64 and 128): every served decode
+# shape of chip_smoke.py's kernel phase (qwen3-1.7b, hymba-1.5b's ring,
+# chatglm3-6b's G 16, granite, llava's 4096-slot ring, deepseek-coder-33b,
+# qwen1.5-32b, whisper-large-v3's cross and self caches) and K2's edges at
+# those head dims
+SM90_SERVED = [
+    (4, 1024, 16, 8, 128, 0, False, 1039),
+    (4, 1024, 25, 5, 64, 1024, True, 1039),
+    (4, 1024, 32, 2, 128, 0, False, 1039),
+    (4, 1024, 24, 8, 64, 0, False, 1039),
+    (4, 4096, 32, 8, 128, 4096, True, 4111),
+    (4, 1024, 56, 8, 128, 0, False, 1039),
+    (4, 1024, 40, 40, 128, 0, False, 1039),
+    (4, 1500, 20, 20, 64, 0, False, 1499),
+    (4, 432, 20, 20, 64, 0, False, 447),
+]
+SM90_EDGES = [c for c in K2_EDGE_CASES if c[4] in (64, 128)]
+# qwen1.5-32b's 40 kv heads at B 8 and 16: 320 rows fill about one wave of
+# one-CTA clusters with the deepest ring, 640 take several waves
+SM90_MANY_ROWS = [(8, 1024, 40, 40, 128, 0, False, 1039),
+                  (16, 1024, 40, 40, 128, 0, False, 1039)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,dh,window,ring,pos",
+                         SM90_SERVED + SM90_EDGES + SM90_MANY_ROWS)
+def test_sm90_decode_vs_plain(gen, B, S, H, KV, dh, window, ring, pos):
+    """One wrapper call of K2 and of K3 is one device launch of
+    decode_sm90 (G up to 16), each within 2**-6 of every row's largest
+    value of its plain version; K3 also of the transcription of its
+    arithmetic and of the kernel's split and merge order under its plan."""
+    assert dec.kernel_for(torch.bfloat16, dh) == "sm90"
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda",
+                               dtype=torch.bfloat16)
+    q, ck, cv = r(B, 1, H, dh), r(B, S, KV, dh), r(B, S, KV, dh)
+    kw = dict(window=window, ring=ring)
+    made, out = _device_launches(
+        "decode_attention", lambda: dec.decode_attention(q, ck, cv, pos, **kw))
+    assert made == [0, 1], made
+    assert out.shape == q.shape and torch.isfinite(out).all()
+    assert _row_rel(out.float(), dec.decode_attention_plain(
+        q, ck, cv, pos, **kw).float()) <= 2.0 ** -6
+    k8, ks = attn.quantize_kv(ck)
+    v8, vs = attn.quantize_kv(cv)
+    made, out = _device_launches(
+        "decode_attention",
+        lambda: dec.decode_attention_quant(q, k8, ks, v8, vs, pos, **kw))
+    assert made == [0, 1], made
+    plan = dec.launch_plan(q.dtype, k8.dtype, B, S, H, KV, dh, q.device)
+    for ref in (dec.decode_attention_quant_plain(q, k8, ks, v8, vs, pos,
+                                                 **kw),
+                dec.decode_attention_quant_as_kernel(q, k8, ks, v8, vs, pos,
+                                                     **kw),
+                dec.decode_sm90_plain(q, k8, v8, pos, n_ctas=plan["n_ctas"],
+                                      chunk=plan["chunk"],
+                                      stages=plan["stages"], k_scale=ks,
+                                      v_scale=vs, **kw)):
+        assert _row_rel(out.float(), ref.float()) <= 2.0 ** -6
+
+
+def _sm90_direct(q, caches, pos, n_ctas, chunk, stages, window, ring):
+    """One launch of decode_sm90 through the C entry under a plan of the
+    caller's (K2: caches k, v; K3: k, k_scale, v, v_scale)."""
+    from repro_torch.kernels import _build
+    name = ("decode_attention_group_fwd" if len(caches) == 2
+            else "decode_attention_q8_fwd")
+    B, _, H, dh = q.shape
+    S, KV = caches[0].shape[1], caches[0].shape[2]
+    o = torch.empty_like(q)
+    fn = _build.entry("decode_attention", name, len(caches) + 2, 15)
+    err = fn(q.data_ptr(), *[t.data_ptr() for t in caches], o.data_ptr(),
+             dec.KERNELS["sm90"], _build.DTYPES[q.dtype], B, S, H, KV,
+             H // KV, 0, dh, pos, window, int(ring), n_ctas, chunk, stages,
+             dh ** -0.5, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, name)
+    return o
+
+
+# (dh, int8 cache, ring depth): rings shallower than a CTA's tiles at
+# depths that are not multiples of the 4 consumer warps (stage s belongs
+# to warp s % 4: 1-3 stages leave warps idle), and the deepest
+SM90_DEPTHS = ([(128, False, st) for st in (1, 2, 3, 4)]
+               + [(64, False, st) for st in (1, 3, 5, 6, 7, 8)]
+               + [(128, True, st) for st in (1, 2, 3, 5, 6, 7, 8)]
+               + [(64, True, st) for st in (1, 3, 6, 10, 13, 16)])
+
+
+@pytest.mark.parametrize("dh,q8,stages", SM90_DEPTHS)
+def test_sm90_decode_at_every_ring_depth(gen, dh, q8, stages):
+    """decode_sm90 with one CTA a row over 32 tiles and with clusters of 2
+    (16 tiles a CTA), under a window that skips tiles, at ring depths the
+    plan takes only on a small card: within 2**-6 of every row's largest
+    value of the plain version, and K3 of the transcription of its split
+    and merge order at the same depth."""
+    B, S, H, KV, pos, window = 2, 1024, 32, 2, 1500, 900
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda",
+                               dtype=torch.bfloat16)
+    q, ck, cv = r(B, 1, H, dh), r(B, S, KV, dh), r(B, S, KV, dh)
+    kw = dict(window=window, ring=True)
+    if q8:
+        k8, ks = attn.quantize_kv(ck)
+        v8, vs = attn.quantize_kv(cv)
+        caches = (k8, ks, v8, vs)
+        refs = [dec.decode_attention_quant_plain(q, *caches, pos, **kw)]
+    else:
+        caches = (ck, cv)
+        refs = [dec.decode_attention_plain(q, ck, cv, pos, **kw)]
+    for n_ctas in (1, 2):
+        chunk = S // n_ctas
+        out = _sm90_direct(q, caches, pos, n_ctas, chunk, stages, window,
+                           True)
+        assert torch.isfinite(out).all()
+        want = list(refs)
+        if q8:
+            want.append(dec.decode_sm90_plain(
+                q, k8, v8, pos, n_ctas=n_ctas, chunk=chunk, stages=stages,
+                k_scale=ks, v_scale=vs, **kw))
+        for ref in want:
+            assert _row_rel(out.float(), ref.float()) <= 2.0 ** -6
+
+
+@pytest.mark.parametrize("dtype,dh", [("float32", 64), ("float32", 128),
+                                      ("bfloat16", 32), ("bfloat16", 256)])
+def test_decode_cluster_runs_float32_and_dh_32_256(gen, dtype, dh):
+    """float32 q and bf16 at dh 32 and 256 stay on decode_cluster: one
+    device launch of it a call (G 5), none of decode_sm90."""
+    dt = getattr(torch, dtype)
+    assert dec.kernel_for(dt, dh) == "cluster"
+    r = lambda *s: torch.randn(*s, generator=gen, device="cuda", dtype=dt)
+    q, ck, cv = r(2, 1, 10, dh), r(2, 300, 2, dh), r(2, 300, 2, dh)
+    made, out = _device_launches(
+        "decode_attention", lambda: dec.decode_attention(q, ck, cv, 310))
+    assert made == [1, 0], made
+    _check_rows(out, dec.decode_attention_plain(q, ck, cv, 310), dt)
+    k8, ks = attn.quantize_kv(ck.float())
+    made, _ = _device_launches(
+        "decode_attention",
+        lambda: dec.decode_attention_quant(q, k8, ks, k8, ks, 310))
+    assert made == [1, 0], made
+
+
+def test_sm90_smem_and_fit_on_the_card(gen):
+    """The C layout's shared memory is the plan's mirror of it, at every
+    kernel and a spread of groups, clusters and rings; the card holds the
+    plan's clusters at every served shape in one wave
+    (cudaOccupancyMaxActiveClusters)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    smem = _build.library("decode_attention").decode_attention_sm90_smem
+    smem.restype, smem.argtypes = ctypes.c_longlong, [ctypes.c_int] * 5
+    for q8 in (0, 1):
+        for dh in (64, 128):
+            for G in (1, 2, 5, 8, 9, 16):
+                for n in (1, 3, 8, 16):
+                    for st in (1, 2, 4):
+                        assert smem(q8, dh, G, n, st) == dec.sm90_smem(
+                            G, dh, 1 if q8 else 2, n, st)
+    for B, S, H, KV, dh, *_ in SM90_SERVED:
+        for kv_dtype in (torch.bfloat16, torch.int8):
+            plan = dec.launch_plan(torch.bfloat16, kv_dtype, B, S, H, KV, dh,
+                                   "cuda:0")
+            fits = dec._card_clusters(0, int(kv_dtype == torch.int8), dh,
+                                      H // KV, plan["n_ctas"],
+                                      plan["stages"])
+            assert B * KV <= fits, (B, S, H, KV, dh, plan, fits)

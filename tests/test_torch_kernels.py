@@ -7,7 +7,10 @@ the Pallas kernel of ``repro.kernels`` in interpret mode, as
 Same sweep as ``tests/test_kernels.py``. Tolerances: 2e-5 for float32,
 2e-2 for bfloat16; the transcription of K3's bf16 arithmetic
 (``decode_attention_quant_as_kernel``) within 2**-6 of each output row's
-largest value. Inputs come from numpy with a seed.
+largest value. ``decode_sm90_plain``, the transcription of K2's and K3's
+Hopper kernel (its tiles, warps and rank-order merge under a plan), is
+held to the plain versions, the Pallas kernels and K3's transcription at
+the same tolerances. Inputs come from numpy with a seed.
 
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
@@ -380,3 +383,87 @@ def test_cluster_plans_at_whisper_caches(B, S, KV, k2, k3):
         assert (n - 1) * chunk < S <= n * chunk
     if S != 1024:
         assert k2[1] % dec.SLOT_TILE and k3[1] % dec.SLOT_TILE
+
+
+# --- the Hopper kernel's split and merge order (decode_sm90) --------------
+
+# (B, S, H, KV, dh, window, ring, pos, n_ctas, chunk, stages): G 16; a
+# wrapped ring under a window; CTA ranges that end mid-tile (chunk not a
+# multiple of the 32-slot tile); ranks with no valid slot (a full cache
+# early in decode); a CTA with more tiles than warps (two rounds of the
+# warps); rings shallower than a CTA's tiles (stage s to warp s % 4: 1 and
+# 3 stages leave warps idle, 6 give two warps twice the tiles of the
+# others); stages 0 is a ring as deep as the CTA's tiles
+SM90_CASES = [
+    (2, 64, 32, 2, 128, 0, False, 70, 2, 32, 0),
+    (2, 64, 8, 2, 64, 16, True, 200, 2, 32, 0),
+    (2, 100, 4, 2, 64, 48, False, 90, 4, 25, 0),
+    (1, 100, 4, 1, 128, 0, True, 150, 3, 40, 0),
+    (2, 128, 8, 2, 64, 0, False, 40, 4, 32, 0),
+    (1, 300, 6, 3, 64, 0, False, 299, 1, 300, 0),
+    (1, 300, 6, 3, 64, 0, False, 299, 1, 300, 1),
+    (1, 300, 6, 3, 64, 0, False, 299, 1, 300, 3),
+    (1, 500, 32, 2, 64, 0, True, 640, 1, 512, 6),
+]
+
+
+@pytest.mark.parametrize(
+    "B,S,H,KV,dh,window,ring,pos,n_ctas,chunk,stages", SM90_CASES)
+def test_sm90_split_and_merge_match_plain_and_pallas(B, S, H, KV, dh, window,
+                                                     ring, pos, n_ctas,
+                                                     chunk, stages):
+    """``decode_sm90_plain`` (the Hopper kernel's tiles, warps, CTA merge
+    and rank-order cluster merge) in float32 gives K2's function: within
+    2e-5 of the plain version and of the Pallas kernel (interpret); in
+    bfloat16 (p rounded for P.V as the kernel rounds it) within 2**-6 of
+    each row's largest value of the plain version."""
+    rng = np.random.default_rng(31 + S + dh + pos)
+    q = _normal(rng, (B, 1, H, dh))
+    ck, cv = _normal(rng, (B, S, KV, dh)), _normal(rng, (B, S, KV, dh))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, ck, cv))
+    kw = dict(window=window, ring=ring)
+    out = dec.decode_sm90_plain(tq, tk, tv, pos, n_ctas=n_ctas, chunk=chunk,
+                                stages=stages, **kw)
+    assert out.shape == (B, 1, H, dh) and out.dtype == torch.float32
+    assert _diff(out, dec.decode_attention_plain(tq, tk, tv, pos, **kw)) \
+        < 2e-5
+    jargs = (jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv), pos)
+    assert _diff(out, pallas_decode(*jargs, **kw)) < 2e-5
+    bq, bk, bv = (t.to(torch.bfloat16) for t in (tq, tk, tv))
+    out = dec.decode_sm90_plain(bq, bk, bv, pos, n_ctas=n_ctas, chunk=chunk,
+                                stages=stages, **kw)
+    assert out.dtype == torch.bfloat16
+    assert _row_rel(out, dec.decode_attention_plain(bq, bk, bv, pos, **kw)) \
+        <= 2.0 ** -6
+
+
+@pytest.mark.parametrize(
+    "B,S,H,KV,dh,window,ring,pos,n_ctas,chunk,stages", SM90_CASES)
+def test_sm90_split_and_merge_match_k3_arithmetic(B, S, H, KV, dh, window,
+                                                  ring, pos, n_ctas, chunk,
+                                                  stages):
+    """K3 through ``decode_sm90_plain`` (k scale on the f32 scores, p
+    times the v scale): in float32 within 2e-5 of
+    ``decode_attention_quant_as_kernel`` and of the Pallas int8 kernel
+    (interpret); in bfloat16 within 2**-6 of each row's largest value of
+    ``decode_attention_quant_as_kernel``, which rounds p times the v scale
+    to bf16 as both do."""
+    rng = np.random.default_rng(37 + S + dh + pos)
+    q, ck, cks, cv, cvs = _q8_inputs(rng, B, S, H, KV, dh)
+    cache = [torch.from_numpy(a) for a in (ck, cks, cv, cvs)]
+    kw = dict(window=window, ring=ring)
+    for dtype in (torch.float32, torch.bfloat16):
+        tq = torch.from_numpy(q).to(dtype)
+        out = dec.decode_sm90_plain(tq, cache[0], cache[2], pos,
+                                    n_ctas=n_ctas, chunk=chunk,
+                                    stages=stages, k_scale=cache[1],
+                                    v_scale=cache[3], **kw)
+        ref = dec.decode_attention_quant_as_kernel(tq, *cache, pos, **kw)
+        assert out.dtype == dtype
+        if dtype == torch.float32:
+            assert _diff(out, ref) < 2e-5
+            pal = pallas_q8(*(jnp.asarray(a) for a in (q, ck, cks, cv, cvs)),
+                            pos, **kw)
+            assert _diff(out, pal) < 2e-5
+        else:
+            assert _row_rel(out, ref) <= 2.0 ** -6
