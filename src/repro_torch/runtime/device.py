@@ -16,6 +16,10 @@ to real bytes here:
   cold       — build kernels + warm-up + upload   (first instantiation)
   host_warm  — weights evicted from device: re-upload only
   warm       — device-resident: execute immediately
+
+Each endpoint records its spans through ``runtime.trace`` (off unless
+switched on): the wait for its lock, the inputs, the prefill, each decode
+step, the closing sync, uploads, the cold start and evictions.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import _build
 from repro_torch.models import build_model, decode_cache_plan
 from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.runtime import trace
 from repro_torch.shapes import InputShape
 
 
@@ -41,6 +46,33 @@ def resolve_device(device) -> torch.device:
             f"device {device!r} requested but CUDA is not available; pass "
             f"device='cpu' to run on the CPU")
     return dev
+
+
+class EndpointLock:
+    """A ``threading.Lock`` that records each wait for it as a ``lock``
+    span: the executor's ``with ep.lock:`` around an execution or a
+    prefetch."""
+
+    def __init__(self, fn_id: str):
+        self.fn_id = fn_id
+        self._lock = threading.Lock()
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        t = trace.begin()
+        got = self._lock.acquire(blocking, timeout)
+        trace.end(t, "lock", self.fn_id)
+        return got
+
+    __enter__ = acquire
+
+    def release(self) -> None:
+        self._lock.release()
+
+    def __exit__(self, *exc) -> None:
+        self._lock.release()
+
+    def locked(self) -> bool:
+        return self._lock.locked()
 
 
 class TorchEndpoint:
@@ -66,7 +98,7 @@ class TorchEndpoint:
         self.device_params = None
         self.uploads = 0            # host -> device copies of the weights
         self._compiled = False
-        self.lock = threading.Lock()  # one instance: serialize executions
+        self.lock = EndpointLock(fn_id)  # one instance: serialize executions
         self.last_use = 0.0
 
     def _to_host(self, t: torch.Tensor) -> torch.Tensor:
@@ -85,14 +117,20 @@ class TorchEndpoint:
 
     def upload(self) -> float:
         t0 = time.monotonic()
+        span = trace.begin()
         self.device_params = tree_map(
             lambda t: t.to(self.device, non_blocking=True, copy=True),
             self.host_params)
+        t = trace.begin()
         self._sync()
+        trace.end(t, "sync", self.fn_id)
         self.uploads += 1
+        trace.end(span, "upload", self.fn_id, self.weight_bytes)
         return time.monotonic() - t0
 
     def evict(self) -> None:
+        if self.device_params is not None:
+            trace.instant("evict", self.fn_id, self.weight_bytes)
         self.device_params = None
 
     # -- compilation (the "container init" analogue) -------------------------
@@ -100,12 +138,14 @@ class TorchEndpoint:
         """Build the kernels (first use in the process), then run one
         warm-up prefill and decode step."""
         t0 = time.monotonic()
+        span = trace.begin()
         if self.device.type == "cuda":
             _build.build_all()
         if self.device_params is None:
             self.upload()
         self._run(seed=0, steps=1)
         self._compiled = True
+        trace.end(span, "compile", self.fn_id)
         return time.monotonic() - t0
 
     @property
@@ -114,23 +154,32 @@ class TorchEndpoint:
 
     # -- serving -----------------------------------------------------------
     def _run(self, seed: int, steps: int) -> torch.Tensor:
+        fn = self.fn_id
         gen = torch.Generator(self.device).manual_seed(seed)
+        t = trace.begin()
         batch = self.model.make_batch(self.serve_shape, gen, self.device)
+        trace.end(t, "inputs", fn)
         with torch.inference_mode():
+            t = trace.begin()
             logits, cache = self.model.prefill_fn(
                 self.device_params, batch, cache_len=self.plan.length,
                 ring=self.plan.ring)
             pos = self.model.decode_start(batch)
             tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            trace.end(t, "prefill", fn)
             toks = []
             for i in range(steps):
+                t = trace.begin()
                 logits, cache = self.model.decode_fn(
                     self.device_params, cache, tok, pos + i,
                     ring=self.plan.ring)
                 tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+                trace.end(t, "decode", fn)
                 toks.append(tok)
+            t = trace.begin()
             out = torch.cat(toks, dim=1).cpu()
         self._sync()
+        trace.end(t, "sync", fn)
         return out
 
     def execute(self, request: Optional[dict] = None) -> Dict[str, object]:
